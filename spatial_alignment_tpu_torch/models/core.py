@@ -1,0 +1,631 @@
+"""GPSA core in PyTorch: factor pass, warp layer, data layer, ELBO.
+
+Counterpart of ``spatial_alignment_tpu/models/core.py`` on the default
+(square-parameterization, merged-factor, unchunked) path. The JAX package
+``vmap``s its per-view function; here the view axis is an explicit leading
+batch dim. Fixed (template) views are left out of the factor pass and the
+KL by static indexing, and their slots in the per-view outputs are filled
+out of place (``torch.stack``), so nothing saved for backward is written in
+place.
+
+Monte-Carlo noise: ``warp_layer``, ``data_layer``, ``forward`` and
+``negative_elbo`` take the standard-normal draws as optional tensors (the
+tests pass the JAX package's draws) and otherwise draw them from the given
+``torch.Generator``. Everything is float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..ops.gram import gram
+from ..ops.kernels import get_kernel
+from ..ops.linalg import (
+    cholesky_solve,
+    joint_factor_cholesky,
+    joint_factor_cholesky_inverse,
+    kl_mvn_chol,
+    tri_inverse,
+)
+from .spec import ModelSpec, check_supported
+
+_LOG_2PI = math.log(2.0 * math.pi)
+# Floor for marginal variances before sqrt: d sqrt(u)/du is infinite at 0.
+_VAR_FLOOR = 1e-10
+
+
+class WarpAux(NamedTuple):
+    """Warp-layer intermediates needed by the KL term."""
+
+    Kuu_chol: torch.Tensor  # (V, m_X, m_X)
+    Omega_tril: torch.Tensor  # (V, D, m_X, m_X)
+    mu_z: torch.Tensor  # (V, m_X, D)
+    Kuu_inv: Optional[torch.Tensor] = None  # (V, m_X, m_X)
+
+
+class DataAux(NamedTuple):
+    """Data-layer intermediates needed by the KL term."""
+
+    Kuu_chol: torch.Tensor  # (m_G, m_G)
+    Omega_tril: Dict[str, torch.Tensor]  # {mod: (L, m_G, m_G)}
+    Kuu_inv: Optional[torch.Tensor] = None  # (m_G, m_G)
+
+
+class ForwardResult(NamedTuple):
+    G_means: Dict[str, torch.Tensor]  # {mod: (V, Np, D)}
+    G_samples: Dict[str, torch.Tensor]  # {mod: (S, V, Np, D)}
+    F_latent_samples: Dict[str, torch.Tensor]  # {mod: (S, V, Np, L)}
+    F_observed_samples: Dict[str, torch.Tensor]  # {mod: (S, V, Np, P)}
+    warp_aux: WarpAux
+    data_aux: DataAux
+
+
+# ---------------------------------------------------------------------------
+# SVGP predictive: mean and diagonal variance
+# ---------------------------------------------------------------------------
+
+
+def _quad_diag(xT: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+    """Per-point quadratic-form diagonals sum_k (xT @ factors)^2 -> (..., B, N).
+
+    xT (..., N, m); factors (..., B, m, m) per output-channel factors."""
+    t = xT.unsqueeze(-3) @ factors  # (..., B, N, m)
+    return torch.square(t).sum(dim=-1)
+
+
+def svgp_mean_var(
+    kff_diag: torch.Tensor,  # (..., N)
+    Kuf: torch.Tensor,  # (..., m, N)
+    Kuu_chol: torch.Tensor,  # (..., m, m)
+    mu_x,  # (..., N, C) or 0
+    mu_z,  # (..., m, C) or 0
+    delta: torch.Tensor,  # (..., m, C)
+    Omega_tril: torch.Tensor,  # (..., B, m, m)
+    diagonal_offset: float,
+    solve_mode: str = "solve",
+    Kuu_inv: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SVGP marginal posterior at the Kuf columns (non-whitened).
+
+    Returns mu_tilde (..., N, C) and Sigma_tilde (..., B, N). ``solve_mode``
+    as in ``ModelSpec.svgp_solve_mode``; ``Kuu_inv`` is a precomputed
+    chol(Kuu)^-1 for the modes that use it.
+    """
+    if solve_mode in ("inverse", "mixed"):
+        Linv = Kuu_inv if Kuu_inv is not None else tri_inverse(Kuu_chol)
+    if solve_mode == "mixed":
+        half = Linv @ Kuf  # (..., m, N) = L^-1 Kuf
+        aKa = torch.square(half).sum(dim=-2)  # diag(Kfu Kuu^-1 Kuf)
+        # Mean through the narrow (width-C) backward-stable solve.
+        v = cholesky_solve(Kuu_chol, delta - mu_z)  # (..., m, C)
+        mu_tilde = mu_x + Kuf.transpose(-1, -2) @ v
+        # alpha^T Omega_L = (L^-1 Kuf)^T (L^-1 Omega_L): fold Linv into the
+        # m x m channel factors so alpha^T is never formed.
+        C_om = Linv.unsqueeze(-3) @ Omega_tril  # (..., B, m, m)
+        aOa = _quad_diag(half.transpose(-1, -2), C_om)
+    elif solve_mode == "inverse":
+        half = Linv @ Kuf
+        alphaT = half.transpose(-1, -2) @ Linv  # (..., N, m) = Kfu Kuu^-1
+        aKa = torch.square(half).sum(dim=-2)
+        mu_tilde = mu_x + alphaT @ (delta - mu_z)
+        aOa = _quad_diag(alphaT, Omega_tril)
+    elif solve_mode in ("solve", "kl_inverse"):
+        alpha = cholesky_solve(Kuu_chol, Kuf)  # (..., m, N)
+        alphaT = alpha.transpose(-1, -2)
+        a_t_K = alphaT @ Kuu_chol
+        aKa = torch.square(a_t_K).sum(dim=-1)
+        mu_tilde = mu_x + alphaT @ (delta - mu_z)
+        aOa = _quad_diag(alphaT, Omega_tril)
+    else:
+        raise ValueError(f"unknown solve mode {solve_mode!r}")
+    sigma = (
+        kff_diag.unsqueeze(-2) - aKa.unsqueeze(-2) + aOa + 2.0 * diagonal_offset
+    )
+    return mu_tilde, sigma
+
+
+# ---------------------------------------------------------------------------
+# Factor pass
+# ---------------------------------------------------------------------------
+
+
+class FactorPass(NamedTuple):
+    """Every Cholesky factor a step needs, from one probe + one final call."""
+
+    warp_Kuu_chol: torch.Tensor  # (Va, m_X, m_X), active views only
+    warp_Om_tril: torch.Tensor  # (Va, D, m_X, m_X)
+    data_Kuu_chol: torch.Tensor  # (m_G, m_G)
+    data_Om_tril: Dict[str, torch.Tensor]  # {mod: (L, m_G, m_G)}
+    warp_Kuu_inv: Optional[torch.Tensor] = None  # (Va, m_X, m_X)
+    data_Kuu_inv: Optional[torch.Tensor] = None  # (m_G, m_G)
+
+
+def _active_views(spec: ModelSpec):
+    return [v for v in range(spec.n_views) if not spec.fixed_view_mask[v]]
+
+
+def _take_active(spec: ModelSpec, arr: torch.Tensor, active) -> torch.Tensor:
+    """The active views' rows. Static indices: stacked slices, so no index
+    tensor is copied to the device on each step."""
+    if len(active) == spec.n_views:
+        return arr
+    return torch.stack([arr[v] for v in active])
+
+
+def _warp_grams(spec: ModelSpec, hp: dict, active):
+    """(Kuu (Va, m_X, m_X), Omega_sqt (Va, D, m_X, m_X)) for active views."""
+    kern = get_kernel(spec.kernel_warp)
+    Xt = _take_active(spec, hp["Xtilde"], active)
+    ls = _take_active(spec, hp["warp_kernel_lengthscales"], active)
+    var = _take_active(spec, hp["warp_kernel_variances"], active)
+    Kuu = kern(Xt, Xt, ls[:, None, None], var[:, None, None])
+    return Kuu, _take_active(spec, hp["Omega_sqt_G"], active)
+
+
+def _data_gram(spec: ModelSpec, hp: dict) -> torch.Tensor:
+    kern = get_kernel(spec.kernel_data)
+    return kern(
+        hp["Gtilde"], hp["Gtilde"], hp["data_kernel_lengthscale"], hp["data_kernel_variance"]
+    )
+
+
+def _split_sizes(sizes, slab):
+    parts, off = [], 0
+    for s in sizes:
+        parts.append(slab[off : off + s])
+        off += s
+    return parts
+
+
+def _wants_kuu_inverse(spec: ModelSpec) -> bool:
+    return spec.svgp_solve_mode in ("inverse", "kl_inverse", "mixed")
+
+
+def _kuu_inverses(spec: ModelSpec, L_w, L_d, Va: int, m_X: int, m_G: int):
+    """(warp, data) explicit Kuu-Cholesky inverses, merged when sizes match."""
+    if not _wants_kuu_inverse(spec):
+        return None, None
+    if m_X == m_G and Va > 0:
+        inv = tri_inverse(torch.cat([L_w, L_d[None]], dim=0))
+        return inv[:Va], inv[Va]
+    inv_w = tri_inverse(L_w) if Va else None
+    return inv_w, tri_inverse(L_d)
+
+
+def compute_factors(spec: ModelSpec, hp: dict) -> FactorPass:
+    """One batched factorization pass over all of the step's m x m matrices.
+
+    The active views' warp Grams and the data Gram share one jitter probe;
+    they and every variational-covariance product share one final
+    factorization (two groups when m_X != m_G).
+    """
+    check_supported(spec)
+    eps = spec.diagonal_offset
+    active = _active_views(spec)
+    Va = len(active)
+    D = spec.n_spatial_dims
+
+    Kuu_w, Om_w_sqt = _warp_grams(spec, hp, active)
+    Kuu_d = _data_gram(spec, hp)
+    m_X, m_G = Kuu_w.shape[-1], Kuu_d.shape[-1]
+    om_d_list = [hp["Omega_sqt_F"][mod.name] for mod in spec.modalities]
+    om_d_sizes = [s.shape[0] for s in om_d_list]
+    mod_names = [mod.name for mod in spec.modalities]
+
+    Om_w_flat = Om_w_sqt.reshape(Va * D, m_X, m_X)
+    Om_d_flat = torch.cat(om_d_list, dim=0)
+    if m_X == m_G and Va > 0:
+        n_inv = (Va + 1) if _wants_kuu_inverse(spec) else 0
+        Lg, Lp, inv = joint_factor_cholesky_inverse(
+            torch.cat([Kuu_w, Kuu_d[None]], dim=0),
+            torch.cat([Om_w_flat, Om_d_flat], dim=0),
+            eps,
+            n_inv=n_inv,
+        )
+        L_w, L_d = Lg[:Va], Lg[Va]
+        Om_w_tril = Lp[: Va * D].reshape(Va, D, m_X, m_X)
+        Om_d_tril = dict(zip(mod_names, _split_sizes(om_d_sizes, Lp[Va * D :])))
+        if n_inv:
+            return FactorPass(L_w, Om_w_tril, L_d, Om_d_tril, inv[:Va], inv[Va])
+        return FactorPass(L_w, Om_w_tril, L_d, Om_d_tril)
+    if Va:
+        L_w, Om_w_t = joint_factor_cholesky(Kuu_w, Om_w_flat, eps)
+        Om_w_tril = Om_w_t.reshape(Va, D, m_X, m_X)
+    else:
+        L_w, Om_w_tril = Kuu_w, Om_w_sqt
+    Lg_d, Lp_d = joint_factor_cholesky(Kuu_d[None], Om_d_flat, eps)
+    L_d = Lg_d[0]
+    Om_d_tril = dict(zip(mod_names, _split_sizes(om_d_sizes, Lp_d)))
+    inv_w, inv_d = _kuu_inverses(spec, L_w, L_d, Va, m_X, m_G)
+    return FactorPass(L_w, Om_w_tril, L_d, Om_d_tril, inv_w, inv_d)
+
+
+# ---------------------------------------------------------------------------
+# Warp layer
+# ---------------------------------------------------------------------------
+
+
+def _concat_modalities(spec: ModelSpec, batch):
+    """Stack per-modality padded arrays along the point axis: (V, Ntot, ...)."""
+    coords = torch.cat([batch[m]["coords"] for m in spec.modality_names], dim=1)
+    mask = torch.cat([batch[m]["mask"] for m in spec.modality_names], dim=1)
+    return coords, mask
+
+
+def _split_modalities(spec: ModelSpec, arr: torch.Tensor, axis: int):
+    """Inverse of _concat_modalities along the given axis."""
+    pieces, off = {}, 0
+    for mod in spec.modalities:
+        pieces[mod.name] = arr.narrow(axis, off, mod.n_padded)
+        off += mod.n_padded
+    return pieces
+
+
+def _fill_views(spec: ModelSpec, active, values: Optional[torch.Tensor], filler: torch.Tensor):
+    """(V, ...) from the active views' ``values`` and ``filler`` elsewhere."""
+    if values is None:
+        return None
+    pos = {v: i for i, v in enumerate(active)}
+    return torch.stack(
+        [values[pos[v]] if v in pos else filler for v in range(spec.n_views)]
+    )
+
+
+def warp_layer(
+    spec: ModelSpec,
+    hp: dict,
+    X_all: torch.Tensor,  # (V, Ntot, D) padded observed coords
+    S: int,
+    temperature: float = 1.0,
+    noise: Optional[torch.Tensor] = None,  # (S, V, Ntot, D)
+    factors: Optional[Tuple] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, WarpAux]:
+    """Per-view warp GP posterior + S reparameterized samples.
+
+    Returns (G_mean (V, Ntot, D), G_samples (S, V, Ntot, D), aux).
+    ``factors`` = (Kuu_chol (Va, m, m), Om_tril (Va, D, m, m), Kuu_inv) for
+    the active views, from :func:`compute_factors`.
+    """
+    if factors is None:
+        fp = compute_factors(spec, hp)
+        factors = (fp.warp_Kuu_chol, fp.warp_Om_tril, fp.warp_Kuu_inv)
+    eps = spec.diagonal_offset
+    active = _active_views(spec)
+    Va = len(active)
+    V, Ntot, D = X_all.shape
+    dt, dev = X_all.dtype, X_all.device
+    L_a, Om_a, Linv_a = factors[0], factors[1], factors[2] if len(factors) > 2 else None
+    if spec.svgp_solve_mode in ("inverse", "mixed") and Linv_a is None and Va:
+        Linv_a = tri_inverse(L_a)
+
+    m = hp["Xtilde"].shape[1]
+    eye_m = torch.eye(m, dtype=dt, device=dev)
+    if Va:
+        tk = lambda a: _take_active(spec, a, active)
+        Xt, Xv = tk(hp["Xtilde"]), tk(X_all)
+        ls, var = tk(hp["warp_kernel_lengthscales"]), tk(hp["warp_kernel_variances"])
+        slope, intercept = tk(hp["mean_slopes"]), tk(hp["mean_intercepts"])
+        Kuf = gram(Xt, Xv, ls, var, spec.kernel_warp)  # (Va, m, Ntot)
+        mu_x = Xv @ slope + intercept[:, None, :]  # (Va, Ntot, D)
+        mu_z_a = Xt @ slope + intercept[:, None, :]  # (Va, m, D)
+        kff = torch.exp(var)[:, None] * torch.ones(Va, Ntot, dtype=dt, device=dev)
+        mu_a, sig_a = svgp_mean_var(
+            kff, Kuf, L_a, mu_x, mu_z_a, tk(hp["delta_G"]), Om_a, eps,
+            solve_mode=spec.svgp_solve_mode, Kuu_inv=Linv_a,
+        )
+    if Va == V:
+        mu_tilde, sigma, mu_z = mu_a, sig_a, mu_z_a
+        Kuu_chol, Om_tril, Kuu_inv = L_a, Om_a, Linv_a
+    else:
+        # Fixed (template) views: their outputs are overwritten with X_all
+        # below and their KL lanes are excluded, so they get finite fillers
+        # (identity factors) instead of a factorization.
+        fill = lambda vals, filler: _fill_views(spec, active, vals, filler)
+        zeros_n = torch.zeros(Ntot, D, dtype=dt, device=dev)
+        mu_tilde = fill(mu_a, zeros_n) if Va else zeros_n.expand(V, Ntot, D)
+        sigma = (
+            fill(sig_a, torch.ones(D, Ntot, dtype=dt, device=dev))
+            if Va
+            else torch.ones(V, D, Ntot, dtype=dt, device=dev)
+        )
+        Kuu_chol = fill(L_a, eye_m) if Va else eye_m.expand(V, m, m)
+        eye_om = eye_m.expand(D, m, m)
+        Om_tril = fill(Om_a, eye_om) if Va else eye_om.expand(V, D, m, m)
+        Kuu_inv = fill(Linv_a, eye_m) if Linv_a is not None else None
+        zeros_m = torch.zeros(m, D, dtype=dt, device=dev)
+        mu_z = fill(mu_z_a, zeros_m) if Va else zeros_m.expand(V, m, D)
+    sigma = sigma.transpose(-1, -2)  # (V, Ntot, D)
+
+    if spec.reference_sample_scale:
+        scale = sigma  # the reference passes the variance as the Normal scale
+    else:
+        scale = torch.sqrt(torch.clamp_min(sigma, _VAR_FLOOR))
+    scale = scale * temperature  # warp-noise tempering; 1.0 = exact ELBO
+
+    if noise is None:
+        noise = torch.randn((S,) + tuple(mu_tilde.shape), generator=generator, dtype=dt, device=dev)
+    samples = mu_tilde[None] + scale[None] * noise  # (S, V, Ntot, D)
+
+    if spec.any_fixed_view:
+        fixed = spec.fixed_view_mask
+        mu_tilde = torch.stack([X_all[v] if fixed[v] else mu_tilde[v] for v in range(V)])
+        samples = torch.stack(
+            [X_all[v].expand(S, Ntot, D) if fixed[v] else samples[:, v] for v in range(V)],
+            dim=1,
+        )
+
+    return mu_tilde, samples, WarpAux(Kuu_chol, Om_tril, mu_z, Kuu_inv)
+
+
+# ---------------------------------------------------------------------------
+# Data layer
+# ---------------------------------------------------------------------------
+
+
+def _data_factors(spec: ModelSpec, hp: dict, factors):
+    if factors is None:
+        fp = compute_factors(spec, hp)
+        factors = (fp.data_Kuu_chol, fp.data_Om_tril, fp.data_Kuu_inv)
+    L_F, Om_by_mod = factors[0], factors[1]
+    Linv_F = factors[2] if len(factors) > 2 else None
+    if spec.svgp_solve_mode in ("inverse", "mixed") and Linv_F is None:
+        Linv_F = tri_inverse(L_F)
+    return L_F, Om_by_mod, Linv_F
+
+
+def _data_moments(spec, hp, G_pts, L_F, Linv_F, delta, Om_tril):
+    """Latent SVGP mean (S, N, L) and variance (S, L, N) at points (S, N, D)."""
+    var = hp["data_kernel_variance"]
+    Kuf = gram(hp["Gtilde"], G_pts, hp["data_kernel_lengthscale"], var, spec.kernel_data)
+    kff = torch.exp(var) * torch.ones(G_pts.shape[:2], dtype=G_pts.dtype, device=G_pts.device)
+    return svgp_mean_var(
+        kff, Kuf, L_F, 0.0, 0.0, delta, Om_tril, spec.diagonal_offset,
+        solve_mode=spec.svgp_solve_mode, Kuu_inv=Linv_F,
+    )
+
+
+def data_layer(
+    spec: ModelSpec,
+    hp: dict,
+    G_samples: Dict[str, torch.Tensor],  # {mod: (S, V, Np, D)}
+    noise: Optional[Dict[str, torch.Tensor]] = None,  # {mod: (S, V*Np, L)}
+    factors: Optional[Tuple] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Multi-output data GP sampled at the warped coordinates.
+
+    Returns ({mod: F_latent (S, V, Np, L)}, {mod: F_obs (S, V, Np, P)}, aux).
+    """
+    L_F, Om_by_mod, Linv_F = _data_factors(spec, hp, factors)
+    F_latent, F_obs, Om_tril_F = {}, {}, {}
+    for mod in spec.modalities:
+        S, V, Np, D = G_samples[mod.name].shape
+        N = V * Np
+        G = G_samples[mod.name].reshape(S, N, D)
+        Om_tril = Om_by_mod[mod.name]
+        mu_t, sig = _data_moments(spec, hp, G, L_F, Linv_F, hp["delta_F"][mod.name], Om_tril)
+        eps_f = noise[mod.name] if noise is not None else torch.randn(
+            (S, N, mod.n_latent), generator=generator, dtype=G.dtype, device=G.device
+        )
+        lat = mu_t + torch.sqrt(torch.clamp_min(sig.transpose(-1, -2), _VAR_FLOOR)) * eps_f
+        obs = lat @ hp["W"][mod.name] if mod.use_lmc else lat
+        F_latent[mod.name] = lat.reshape(S, V, Np, mod.n_latent)
+        F_obs[mod.name] = obs.reshape(S, V, Np, mod.n_outputs)
+        Om_tril_F[mod.name] = Om_tril
+    return F_latent, F_obs, DataAux(L_F, Om_tril_F, Linv_F)
+
+
+def data_layer_moments(
+    spec: ModelSpec,
+    hp: dict,
+    G_samples: Dict[str, torch.Tensor],  # {mod: (S, V, Np, D)}
+    factors: Optional[Tuple] = None,
+):
+    """Per-point observed-output moments of the data GP (no sampling).
+
+    Returns ({mod: mu_obs (S, V, Np, P)}, {mod: var_obs (S, V, Np, P)}, aux);
+    under the LMC the observed moments are mu @ W and var @ W^2.
+    """
+    L_F, Om_by_mod, Linv_F = _data_factors(spec, hp, factors)
+    mu_obs, var_obs, Om_tril_F = {}, {}, {}
+    for mod in spec.modalities:
+        S, V, Np, D = G_samples[mod.name].shape
+        G = G_samples[mod.name].reshape(S, V * Np, D)
+        Om_tril = Om_by_mod[mod.name]
+        mu_t, sig = _data_moments(spec, hp, G, L_F, Linv_F, hp["delta_F"][mod.name], Om_tril)
+        var_t = torch.clamp_min(sig.transpose(-1, -2), _VAR_FLOOR)
+        if mod.use_lmc:
+            W = hp["W"][mod.name]
+            mu_o, var_o = mu_t @ W, var_t @ torch.square(W)
+        else:
+            mu_o, var_o = mu_t, var_t
+        mu_obs[mod.name] = mu_o.reshape(S, V, Np, mod.n_outputs)
+        var_obs[mod.name] = var_o.reshape(S, V, Np, mod.n_outputs)
+        Om_tril_F[mod.name] = Om_tril
+    return mu_obs, var_obs, DataAux(L_F, Om_tril_F, Linv_F)
+
+
+# ---------------------------------------------------------------------------
+# Forward + ELBO
+# ---------------------------------------------------------------------------
+
+
+def forward(
+    spec: ModelSpec,
+    hp: dict,
+    batch,
+    S: int = 1,
+    temperature: float = 1.0,
+    *,
+    generator: Optional[torch.Generator] = None,
+    warp_noise: Optional[torch.Tensor] = None,
+    data_noise: Optional[Dict[str, torch.Tensor]] = None,
+) -> ForwardResult:
+    """Full two-layer forward pass with one shared factor pass."""
+    X_all, _ = _concat_modalities(spec, batch)
+    fp = compute_factors(spec, hp)
+    G_mean_all, G_sample_all, warp_aux = warp_layer(
+        spec, hp, X_all, S, temperature, noise=warp_noise,
+        factors=(fp.warp_Kuu_chol, fp.warp_Om_tril, fp.warp_Kuu_inv),
+        generator=generator,
+    )
+    G_means = _split_modalities(spec, G_mean_all, axis=1)
+    G_samples = _split_modalities(spec, G_sample_all, axis=2)
+    F_latent, F_obs, data_aux = data_layer(
+        spec, hp, G_samples, noise=data_noise,
+        factors=(fp.data_Kuu_chol, fp.data_Om_tril, fp.data_Kuu_inv),
+        generator=generator,
+    )
+    return ForwardResult(G_means, G_samples, F_latent, F_obs, warp_aux, data_aux)
+
+
+def gaussian_loglik_sum(y, f, scale, mask) -> torch.Tensor:
+    """Masked sum of Normal(f, scale).log_prob(y); f is (S, ...), y (...)."""
+    log_prob = -0.5 * torch.square((y[None] - f) / scale) - torch.log(scale) - 0.5 * _LOG_2PI
+    return torch.sum(log_prob * mask[None, ..., None])
+
+
+def kl_divergence(spec: ModelSpec, hp: dict, warp_aux: WarpAux, data_aux: DataAux) -> torch.Tensor:
+    """Total KL over the warp and data variational posteriors.
+
+    One ``kl_mvn_chol`` call per matrix size; fixed views have no lanes."""
+    mu_q = hp["delta_G"].transpose(-1, -2)  # (V, D, m)
+    V, D, m_X = mu_q.shape
+    mu_p_w = warp_aux.mu_z.transpose(-1, -2)  # (V, D, m)
+    active = _active_views(spec)
+    Va = len(active)
+    use_inv = (
+        _wants_kuu_inverse(spec)
+        and data_aux.Kuu_inv is not None
+        and (Va == 0 or warp_aux.Kuu_inv is not None)
+    )
+    groups: Dict[int, list] = {}
+    if Va:
+        tk = lambda a: _take_active(spec, a, active)
+        groups[m_X] = [
+            (
+                tk(mu_q).reshape(Va * D, m_X),
+                tk(warp_aux.Omega_tril).reshape(Va * D, m_X, m_X),
+                tk(mu_p_w).reshape(Va * D, m_X),
+                tk(warp_aux.Kuu_chol)[:, None].expand(Va, D, m_X, m_X).reshape(Va * D, m_X, m_X),
+                tk(warp_aux.Kuu_inv)[:, None].expand(Va, D, m_X, m_X).reshape(Va * D, m_X, m_X)
+                if use_inv
+                else None,
+            )
+        ]
+    m_G = spec.m_G
+    for mod in spec.modalities:
+        delta = hp["delta_F"][mod.name]  # (m_G, L)
+        L = delta.shape[-1]
+        groups.setdefault(m_G, []).append(
+            (
+                delta.transpose(-1, -2),
+                data_aux.Omega_tril[mod.name],
+                torch.zeros(L, m_G, dtype=delta.dtype, device=delta.device),
+                data_aux.Kuu_chol.expand(L, m_G, m_G),
+                data_aux.Kuu_inv.expand(L, m_G, m_G) if use_inv else None,
+            )
+        )
+    KL = torch.zeros((), dtype=mu_q.dtype, device=mu_q.device)
+    for entries in groups.values():
+        cat = lambda i: torch.cat([e[i] for e in entries], dim=0)
+        KL = KL + kl_mvn_chol(cat(0), cat(1), cat(2), cat(3), chol_p_inv=cat(4) if use_inv else None).sum()
+    return KL
+
+
+def elbo_terms(spec: ModelSpec, hp: dict, batch, result: ForwardResult, S: int):
+    """(expected log-likelihood, KL divergence)."""
+    KL = kl_divergence(spec, hp, result.warp_aux, result.data_aux)
+    # Reference quirk kept: exp(noise_variance) + offset is the Normal scale.
+    noise_pos = torch.exp(hp["noise_variance"]) + spec.diagonal_offset
+    LL = torch.zeros((), dtype=KL.dtype, device=KL.device)
+    for mm, mod in enumerate(spec.modalities):
+        scale = noise_pos[-spec.n_modalities + mm]
+        LL = LL + gaussian_loglik_sum(
+            batch[mod.name]["outputs"], result.F_observed_samples[mod.name],
+            scale, batch[mod.name]["mask"],
+        ) / S
+    return LL, KL
+
+
+def negative_elbo(
+    spec: ModelSpec,
+    params: dict,
+    consts: dict,
+    batch,
+    S: int,
+    temperature: float = 1.0,
+    *,
+    generator: Optional[torch.Generator] = None,
+    warp_noise: Optional[torch.Tensor] = None,
+    data_noise: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The training loss: -E[log p(y|f)] + KL.
+
+    With ``spec.analytic_data_likelihood`` the data-layer expectation is in
+    closed form and only the warp layer is sampled (``data_noise`` unused).
+    """
+    hp = dict(consts)
+    hp.update(params)
+    if not spec.analytic_data_likelihood:
+        result = forward(
+            spec, hp, batch, S, temperature, generator=generator,
+            warp_noise=warp_noise, data_noise=data_noise,
+        )
+        LL, KL = elbo_terms(spec, hp, batch, result, S)
+        return -LL + KL
+    X_all, _ = _concat_modalities(spec, batch)
+    fp = compute_factors(spec, hp)
+    _, G_sample_all, warp_aux = warp_layer(
+        spec, hp, X_all, S, temperature, noise=warp_noise,
+        factors=(fp.warp_Kuu_chol, fp.warp_Om_tril, fp.warp_Kuu_inv),
+        generator=generator,
+    )
+    G_samples = _split_modalities(spec, G_sample_all, axis=2)
+    mu_obs, var_obs, data_aux = data_layer_moments(
+        spec, hp, G_samples, factors=(fp.data_Kuu_chol, fp.data_Om_tril, fp.data_Kuu_inv)
+    )
+    KL = kl_divergence(spec, hp, warp_aux, data_aux)
+    noise_pos = torch.exp(hp["noise_variance"]) + spec.diagonal_offset
+    LL = torch.zeros((), dtype=KL.dtype, device=KL.device)
+    for mm, mod in enumerate(spec.modalities):
+        scale = noise_pos[-spec.n_modalities + mm]
+        y, mask = batch[mod.name]["outputs"], batch[mod.name]["mask"]
+        # E_q[log N(y; f, s)] = log N(y; mu, s) - var / (2 s^2)
+        lp = (
+            -0.5 * torch.square((y[None] - mu_obs[mod.name]) / scale)
+            - 0.5 * var_obs[mod.name] / torch.square(scale)
+            - torch.log(scale)
+            - 0.5 * _LOG_2PI
+        )
+        LL = LL + torch.sum(lp * mask[None, ..., None]) / S
+    return -LL + KL
+
+
+def predict_mean(spec: ModelSpec, hp: dict, batch):
+    """Deterministic posterior prediction at the batch's coordinates.
+
+    Returns ({mod: G_mean (V, Np, D)}, {mod: F_mean (V, Np, P)},
+    {mod: F_var (V, Np, P)}), with no Monte-Carlo anywhere.
+    """
+    X_all, _ = _concat_modalities(spec, batch)
+    fp = compute_factors(spec, hp)
+    zero_noise = torch.zeros((1,) + tuple(X_all.shape), dtype=X_all.dtype, device=X_all.device)
+    G_mean_all, _, _ = warp_layer(
+        spec, hp, X_all, 1, 0.0, noise=zero_noise,
+        factors=(fp.warp_Kuu_chol, fp.warp_Om_tril, fp.warp_Kuu_inv),
+    )
+    G_means = _split_modalities(spec, G_mean_all, axis=1)
+    mu_obs, var_obs, _ = data_layer_moments(
+        spec, hp, {m: G_means[m][None] for m in spec.modality_names},
+        factors=(fp.data_Kuu_chol, fp.data_Om_tril, fp.data_Kuu_inv),
+    )
+    return (
+        G_means,
+        {m: mu_obs[m][0] for m in spec.modality_names},
+        {m: var_obs[m][0] for m in spec.modality_names},
+    )
