@@ -5,21 +5,35 @@
 
 Drives ``spatial_alignment_tpu_torch`` (never the JAX package) through the
 entry points a user calls, builds every CUDA kernel from the sources in the
-checkout, and holds each kernel against its plain PyTorch version. Phases,
-one JSON line each:
+checkout, and holds each kernel against its plain PyTorch version. Two
+paths are driven: the default ``fit()`` (Cholesky kernel only) and the
+model built with the three kernel opt-ins ``cholesky_impl="pallas"``,
+``quad_diag_impl="pallas"`` and ``fused_factor_inverse="fused"``
+(Cholesky probe, fused factor, triangular solve, quad-diag forward and
+backward). Phases, one JSON line each:
 
   device     nvidia-smi name and power limit, torch / CUDA versions, TF32 flags
   build      nvcc wall time, ptxas register / shared-memory report
-  parity     tiny model: loss and gradients on the card vs the CPU path
+  parity     tiny model, and an m = 64 model with the opt-ins: loss and
+             gradients on the card vs the CPU path
   kernels    cholesky at every main-path shape, and at m = 256 (global-memory
              variant): error vs the plain version, reconstruction residual,
-             NaN contract, autograd vs the plain path, median times
+             NaN contract, autograd vs the plain path, median times; then
+             trisolve, quad_fwd, quad_bwd and factor at every shape the
+             opt-in fits give them (captured from one loss and gradient of
+             each), on random well-conditioned input and on the real inputs
   fit_m200   the full-width slice: m = 200, N = 4,050, 10-latent LMC, 200 steps
   fit_m50    the m = 50 two-view grid, no LMC, 300 steps
-  predict    predict() and forward(S=5) on the m = 200 model
+  fit_m200_pallas  the same model and data as fit_m200 with the opt-ins,
+             200 steps: exact launches per step of every kernel, no plain
+             call, first loss beside fit_m200's, peak memory
+  fit_m50_pallas   the m = 50 grid with the opt-ins, 100 steps (kl_inverse)
+  predict    predict() and forward(S=5) on the m = 200 models
   profile    (with --profile DIR) device time per step by kernel over 10
-             steps of the m = 200 fit, the device's idle share, and the
-             chrome trace in DIR
+             steps of each m = 200 fit, the device's idle share, and the
+             chrome traces in DIR
+  ab_fit_m200  (with --profile DIR) steps/s of the two m = 200 fits in
+             turns, default and opt-in, A B B A twice
 
 Every check raises on failure, so any failed phase exits non-zero. The last
 two lines are the kernels summary and ``{"ok": true, "device": {...}}``.
@@ -38,6 +52,20 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+OPT_INS = dict(cholesky_impl="pallas", quad_diag_impl="pallas", fused_factor_inverse="fused")
+# Where each kernel's TPU original reaches pl.pallas_call.
+REPLACES = {
+    "cholesky": "spatial_alignment_tpu/ops/pallas_cholesky.py:131",
+    "trisolve": "spatial_alignment_tpu/ops/pallas_trisolve.py:198",
+    "quad_fwd": "spatial_alignment_tpu/ops/pallas_quad.py:253",
+    "quad_bwd": "spatial_alignment_tpu/ops/pallas_quad.py:284",
+    "factor": "spatial_alignment_tpu/ops/pallas_factor.py:197",
+}
+SOURCES = {
+    "cholesky": "cholesky", "trisolve": "trisolve", "quad_fwd": "quad", "quad_bwd": "quad",
+    "factor": "factor",
+}
 
 # Published peaks (dense, no sparsity) used for the bound: memory rate and
 # float32 rate outside the tensor cores, by part.
@@ -142,43 +170,133 @@ def capture_cholesky_inputs(model):
     return captured
 
 
-def phase_parity(device):
-    """A tiny model's loss and gradients, on the card and on the CPU, from the
-    same parameters and noise; the CPU path is what the test suite holds
-    against the JAX package."""
+def kernel_modules():
+    from spatial_alignment_tpu_torch.ops import cholesky, factor, quad, trisolve
+
+    return cholesky, trisolve, quad, factor
+
+
+def reset_counts():
+    ch, ts, qd, fc = kernel_modules()
+    ch.launches = ts.launches = qd.fwd_launches = qd.bwd_launches = fc.launches = 0
+    ch.plain_calls = ts.plain_calls = qd.plain_calls = fc.plain_calls = 0
+
+
+def read_counts():
+    """({kernel: launches}, {module: plain calls}) since the last reset."""
+    ch, ts, qd, fc = kernel_modules()
+    launches = {"cholesky": ch.launches, "trisolve": ts.launches, "quad_fwd": qd.fwd_launches,
+                "quad_bwd": qd.bwd_launches, "factor": fc.launches}
+    plain = {"cholesky": ch.plain_calls, "trisolve": ts.plain_calls, "quad": qd.plain_calls,
+             "factor": fc.plain_calls}
+    return launches, plain
+
+
+def capture_kernel_inputs(model):
+    """The inputs the opt-in path hands each new kernel in one loss and
+    gradient (forward and backward launches), one entry per distinct call
+    signature, captured without changing the path. Uses the model's
+    generator, as one training step does."""
+    import torch
+    from spatial_alignment_tpu_torch.models import core
+
+    _, ts, qd, fc = kernel_modules()
+    seen = {}
+
+    def spy(mod, name, key):
+        orig = getattr(mod, name)
+
+        def wrapped(*args):
+            sig = (key,) + tuple(tuple(a.shape) if torch.is_tensor(a) else a for a in args)
+            if torch.is_tensor(args[0]) and sig not in seen:
+                stride0 = args[0].dim() > 2 and all(v == 0 for v in args[0].stride()[:-2])
+                seen[sig] = (key, stride0, [a.detach().clone() if torch.is_tensor(a) else a
+                                            for a in args])
+            return orig(*args)
+
+        setattr(mod, name, wrapped)
+        return mod, name, orig
+
+    spies = [spy(ts, "tri_solve_kernel", "trisolve"), spy(ts, "tri_inverse_kernel", "inverse"),
+             spy(qd, "quad_fwd_kernel", "quad_fwd"), spy(qd, "quad_bwd_kernel", "quad_bwd"),
+             spy(fc, "cholesky_and_inverse_kernel", "factor")]
+    try:
+        loss = core.negative_elbo(model.spec, model.params, model.consts, model._batch, 5,
+                                  generator=model._gen)
+        loss.backward()
+    finally:
+        for mod, name, orig in spies:
+            setattr(mod, name, orig)
+    for p in model.parameters():
+        p.grad = None
+    return list(seen.values())
+
+
+def parity_data(n_per_view):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    X1 = rng.uniform(0, 10, (n_per_view, 2)).astype(np.float32)
+    X = np.concatenate([X1, X1 + 0.1 * rng.standard_normal(X1.shape).astype(np.float32)])
+    Y = np.stack([np.sin(X[:, 0] * (j + 1) / 3.0) + np.cos(X[:, 1]) for j in range(3)], 1)
+    return {"expression": {"spatial_coords": X, "outputs": Y.astype(np.float32),
+                           "n_samples_list": [n_per_view, n_per_view]}}, rng
+
+
+def parity_case(device, n_per_view, m, lengthscale, **options):
+    """Loss and gradients of one model on the CPU and on the card, from the
+    same parameters and noise; returns (loss rel, max gradient rel, the
+    card run's launches and plain calls)."""
     import numpy as np
     import torch
     from spatial_alignment_tpu_torch import VariationalGPSA
     from spatial_alignment_tpu_torch.models import core
 
-    rng = np.random.default_rng(0)
-    X1 = rng.uniform(0, 10, (40, 2)).astype(np.float32)
-    X = np.concatenate([X1, X1 + 0.1 * rng.standard_normal(X1.shape).astype(np.float32)])
-    Y = np.stack([np.sin(X[:, 0] * (j + 1) / 3.0) + np.cos(X[:, 1]) for j in range(3)], 1)
-    dd = {"expression": {"spatial_coords": X, "outputs": Y.astype(np.float32),
-                         "n_samples_list": [40, 40]}}
-    kw = dict(m_X_per_view=16, m_G=16, n_latent_gps={"expression": 2}, fixed_view_idx=0)
+    dd, rng = parity_data(n_per_view)
+    kw = dict(m_X_per_view=m, m_G=m, n_latent_gps={"expression": 2}, fixed_view_idx=0,
+              **options)
     S = 3
-    wn = torch.from_numpy(rng.standard_normal((S, 2, 40, 2)).astype(np.float32))
-    dn = torch.from_numpy(rng.standard_normal((S, 80, 2)).astype(np.float32))
+    wn = torch.from_numpy(rng.standard_normal((S, 2, n_per_view, 2)).astype(np.float32))
+    dn = torch.from_numpy(rng.standard_normal((S, 2 * n_per_view, 2)).astype(np.float32))
     out = {}
     for dev in ("cpu", device):
         m = VariationalGPSA(dd, device=dev, **kw)
         with torch.no_grad():  # moderate lengthscales keep the Grams well conditioned
-            m.params["warp_kernel_lengthscales"].fill_(math.log(2.0))
-            m.params["data_kernel_lengthscale"].fill_(math.log(2.0))
+            m.params["warp_kernel_lengthscales"].fill_(math.log(lengthscale))
+            m.params["data_kernel_lengthscale"].fill_(math.log(lengthscale))
+        reset_counts()
         loss = core.negative_elbo(m.spec, m.params, m.consts, m._batch, S,
                                   warp_noise=wn.to(dev), data_noise={"expression": dn.to(dev)})
         loss.backward()
-        out[dev] = (float(loss.detach()), [p.grad.detach().cpu() for p in m.parameters()])
-    (lc, gc), (lg, gg) = out["cpu"], out[device]
+        out[dev] = (float(loss.detach()), [p.grad.detach().cpu() for p in m.parameters()],
+                    read_counts())
+    (lc, gc, _), (lg, gg, counts) = out["cpu"], out[device]
     loss_rel = abs(lc - lg) / abs(lc)
     grad_rel = max(rel_err(g, c) for g, c in zip(gg, gc) if c.abs().max() > 0)
+    return lc, lg, loss_rel, grad_rel, counts
+
+
+def phase_parity(device):
+    """Loss and gradients on the card and on the CPU from the same parameters
+    and noise, for a tiny default model and for an m = 64 model with the
+    opt-ins (mode mixed, where every new kernel runs); the CPU path is what
+    the test suite holds against the JAX package."""
+    lc, lg, loss_rel, grad_rel, _ = parity_case(device, 40, 16, 2.0)
     # 1e-4 on the loss and 1e-3 on gradients: f32 with other summation orders
     # and another Cholesky on each side.
     check(loss_rel <= 1e-4, f"card vs CPU loss rel {loss_rel}")
     check(grad_rel <= 1e-3, f"card vs CPU gradient rel {grad_rel}")
-    emit("parity", loss_cpu=lc, loss_gpu=lg, loss_rel=loss_rel, max_grad_rel=grad_rel)
+    # m = 64 over [0, 10]^2: lengthscale 0.7 keeps its Grams well conditioned.
+    olc, olg, oloss_rel, ograd_rel, (launches, plain) = parity_case(
+        device, 100, 64, 0.7, **OPT_INS)
+    check(oloss_rel <= 1e-4, f"opt-in m=64: card vs CPU loss rel {oloss_rel}")
+    check(ograd_rel <= 1e-3, f"opt-in m=64: card vs CPU gradient rel {ograd_rel}")
+    check(all(launches[k] > 0 for k in ("trisolve", "quad_fwd", "quad_bwd", "factor")),
+          f"opt-in m=64: a kernel did not launch on the card: {launches}")
+    check(not any(plain.values()), f"opt-in m=64: plain versions ran on the card: {plain}")
+    emit("parity", loss_cpu=lc, loss_gpu=lg, loss_rel=loss_rel, max_grad_rel=grad_rel,
+         optin_m64={"loss_cpu": olc, "loss_gpu": olg, "loss_rel": oloss_rel,
+                    "max_grad_rel": ograd_rel, "launches": launches})
 
 
 def phase_kernels(device, real_inputs, peaks):
@@ -263,50 +381,345 @@ def phase_kernels(device, real_inputs, peaks):
         grads.append(a.grad.cpu())
     grad_rel = rel_err(grads[0], grads[1])
     check(grad_rel <= 1e-3, f"cholesky gradient rel {grad_rel}")
-    emit("kernels", cholesky={"random_spd": list(results.values()), "real_grams": real,
-                              "nan_contract": "ok", "grad_rel_vs_plain": grad_rel})
-    return results, real
+    record = {"random_spd": list(results.values()), "real_grams": real,
+              "nan_contract": "ok", "grad_rel_vs_plain": grad_rel}
+    return record, results, real
 
 
-def phase_fit(name, model, n_epochs, S, expect_mode):
+def bound_ms(n_bytes, n_ops, peaks):
+    """(least time in ms, what sets it) for moving n_bytes and doing n_ops
+    fp32 operations at the part's published peaks."""
+    t_bytes, t_ops = n_bytes / peaks[0] * 1e3, n_ops / peaks[1] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def torch_isfinite_lanes(t):
+    import torch
+
+    return torch.isfinite(t).flatten(-2).all(-1)
+
+
+def cond2(a) -> float:
+    """Largest 2-norm condition number over the batch, in float64."""
+    import torch
+
+    s = torch.linalg.svdvals(a.double())
+    return float((s[..., 0] / s[..., -1]).max())
+
+
+def well_conditioned_factor(gen, shape, device):
+    import torch
+
+    m = shape[-1]
+    B = math.prod(shape[:-2])
+    return torch.linalg.cholesky(spd(gen, B, m, device)).reshape(shape)
+
+
+def check_trisolve(L, B, trans, tol_rel, what):
+    """Kernel vs plain on (L, B): NaN lanes, rel error on the finite lanes,
+    the normwise backward error |op(L) X - B| / (|L| |X|) <= m 2^-24, and
+    the residual |op(L) X - B| / |B| (recorded)."""
+    import torch
+    from spatial_alignment_tpu_torch.ops import trisolve as ts
+
+    Xk = ts.tri_solve_kernel(L, B, trans)
+    Xp = ts.tri_solve_plain(L, B, trans)
+    torch.cuda.synchronize()
+    fk, fp = torch_isfinite_lanes(Xk), torch_isfinite_lanes(Xp)
+    check(bool((fk == fp).all()), f"{what}: non-finite lanes differ")
+    Lf = L.expand(B.shape[:-2] + L.shape[-2:])[fk].double()
+    op = Lf.transpose(-1, -2) if trans else Lf
+    X64 = Xk[fk].double()
+    R = op @ X64 - B[fk].double()
+    norm = torch.linalg.matrix_norm
+    back = float((norm(R) / (norm(Lf) * norm(X64)).clamp_min(1e-300)).max())
+    resid = float((norm(R) / norm(B[fk].double()).clamp_min(1e-300)).max())
+    rel = rel_err(Xk[fk], Xp[fk])
+    m = L.shape[-1]
+    check(back <= m * 2.0**-24, f"{what}: backward error {back}")
+    check(rel <= tol_rel, f"{what}: rel vs plain {rel} (bound {tol_rel})")
+    return {"rel_vs_plain": rel, "backward_error": back, "residual": resid,
+            "max_abs_err": float((Xk[fk] - Xp[fk]).abs().max()),
+            "nonfinite_lanes": int((~fk).sum())}
+
+
+def check_factor(A, real, what):
+    """Fused kernel vs plain: NaN lanes, rel error, |L L^T - A| / |A| and
+    |L L^-1 - I|, the latter two within f32 backward-stability bounds."""
+    import torch
+    from spatial_alignment_tpu_torch.ops import factor
+
+    Lk, Ik = factor.cholesky_and_inverse_kernel(A)
+    Lp, Ip = factor.cholesky_and_inverse_plain(A)
+    torch.cuda.synchronize()
+    nk, np_ = ~torch_isfinite_lanes(Lk), ~torch_isfinite_lanes(Lp)
+    check(bool((nk == np_).all()), f"{what}: NaN lanes differ")
+    check(bool((torch.isnan(Ik).flatten(-2).any(-1) == nk).all()), f"{what}: L^-1 NaN lanes")
+    ok = ~nk
+    m = A.shape[-1]
+    cond = cond2(A[ok]) if real else 10.0
+    rel = max(rel_err(Lk[ok], Lp[ok]), rel_err(Ik[ok], Ip[ok]))
+    res_l = residual(Lk[ok], A[ok])
+    eye = torch.eye(m, dtype=torch.float64, device=A.device)
+    res_i = float((Lk[ok].double() @ Ik[ok].double() - eye).abs().max())
+    # The factor is backward stable (residual 1e-5); factor and inverse may
+    # differ from the plain chain by ~cond * 2^-24, and L L^-1 - I by
+    # ~cond(L) 2^-24 = sqrt(cond) 2^-24, times m for the sum.
+    rel_bound = max(1e-4, 10 * cond * 2.0**-24)
+    inv_bound = max(1e-5, m * math.sqrt(cond) * 2.0**-24)
+    check(res_l <= 1e-5, f"{what}: residual {res_l}")
+    check(rel <= rel_bound, f"{what}: rel vs plain {rel} (bound {rel_bound})")
+    check(res_i <= inv_bound, f"{what}: |L L^-1 - I| {res_i} (bound {inv_bound})")
+    upper = torch.triu(torch.ones(m, m, dtype=torch.bool, device=A.device), 1)
+    check(bool((Lk[..., upper] == 0).all() and (Ik[..., upper] == 0).all()),
+          f"{what}: nonzero above the diagonal")
+    return {"cond": cond if real else None, "rel_vs_plain": rel, "residual": res_l,
+            "inverse_residual": res_i, "nan_lanes": int(nk.sum()),
+            "max_abs_err": max(float((Lk[ok] - Lp[ok]).abs().max()),
+                               float((Ik[ok] - Ip[ok]).abs().max()))}
+
+
+def phase_new_kernels(device, captured, peaks):
+    """trisolve, quad_fwd, quad_bwd and factor against their plain versions
+    at every shape the opt-in fits give them (``captured``: the real inputs
+    of one loss and gradient of each), on those real inputs and on random
+    well-conditioned input of the same shape; NaN lanes; autograd on the card
+    vs the plain path on the CPU; median times beside the bound."""
+    import torch
+    from spatial_alignment_tpu_torch.ops import factor, quad
+    from spatial_alignment_tpu_torch.ops import trisolve as ts
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    rows = {"trisolve": [], "quad_fwd": [], "quad_bwd": [], "factor": []}
+    for key, stride0, args in captured:
+        if key == "trisolve":
+            L, B, trans = args
+            if stride0:
+                L = L[(0,) * (L.dim() - 2)].expand(L.shape)
+            m, n = L.shape[-1], B.shape[-1]
+            batch = math.prod(B.shape[:-2])
+            n_factors = 1 if (stride0 or L.dim() == 2) else batch
+            real = check_trisolve(L, B, trans, max(1e-4, 10 * cond2(L.reshape(-1, m, m)[:n_factors])
+                                                   * 2.0**-24), f"trisolve real {tuple(B.shape)}")
+            Lr = well_conditioned_factor(gen, (n_factors, m, m), device)
+            Lr = Lr[0].expand(L.shape) if n_factors == 1 and L.dim() > 2 else Lr.reshape(L.shape)
+            Br = torch.randn(B.shape, generator=gen, device=device)
+            rand = check_trisolve(Lr, Br, trans, 1e-4, f"trisolve random {tuple(B.shape)}")
+            b, by = bound_ms(4 * (n_factors * m * (m + 1) / 2 + 2 * batch * m * n),
+                             batch * n * m * m, peaks)
+            rows["trisolve"].append({
+                "L": list(L.shape), "B": list(B.shape), "trans": trans,
+                "factor_shared": n_factors == 1, "smem": ts.uses_shared_memory(m, n),
+                "real": real, "random": rand,
+                "kernel_ms": median_ms(lambda: ts.tri_solve_kernel(L, B, trans)),
+                "plain_ms": median_ms(lambda: ts.tri_solve_plain(L, B, trans)),
+                "library_ms": median_ms(lambda: torch.linalg.solve_triangular(
+                    L.transpose(-1, -2) if trans else L, B, upper=trans)),
+                "bound_ms": b, "bound_by": by})
+        elif key == "quad_fwd":
+            x, F = args
+            G, N, m = x.shape
+            Lc = F.shape[-3]
+            yk, yp = quad.quad_fwd_kernel(x, F), quad.quad_diag_plain(x, F)
+            xr = torch.randn(x.shape, generator=gen, device=device)
+            Fr = 0.1 * torch.randn(F.shape, generator=gen, device=device)
+            rk, rp = quad.quad_fwd_kernel(xr, Fr), quad.quad_diag_plain(xr, Fr)
+            torch.cuda.synchronize()
+            # Sums of m squares of m-term dot products: f32 in another order.
+            rel_real, rel_rand = rel_err(yk, yp), rel_err(rk, rp)
+            check(bool(torch.isfinite(yk).all()), "quad_fwd real: non-finite output")
+            check(rel_real <= 1e-4, f"quad_fwd real {tuple(x.shape)}: rel {rel_real}")
+            check(rel_rand <= 1e-4, f"quad_fwd random {tuple(x.shape)}: rel {rel_rand}")
+            b, by = bound_ms(4 * (x.numel() + F.numel() + G * Lc * N), 2 * G * N * Lc * m * m,
+                             peaks)
+            rows["quad_fwd"].append({
+                "x": list(x.shape), "F": list(F.shape), "rel_vs_plain": rel_real,
+                "rel_vs_plain_random": rel_rand, "max_abs_err": float((yk - yp).abs().max()),
+                "kernel_ms": median_ms(lambda: quad.quad_fwd_kernel(x, F)),
+                "plain_ms": median_ms(lambda: quad.quad_diag_plain(x, F)),
+                "library_ms": median_ms(lambda: x.unsqueeze(1) @ F),
+                "library": "torch.matmul producing t only",
+                "bound_ms": b, "bound_by": by})
+        elif key == "quad_bwd":
+            x, F, dy = args
+            G, N, m = x.shape
+            Lc = F.shape[-3]
+            dxk, dFk = quad.quad_bwd_kernel(x, F, dy)
+            dxp, dFp = quad.quad_bwd_plain(x, F, dy)
+            xr = torch.randn(x.shape, generator=gen, device=device)
+            Fr = 0.1 * torch.randn(F.shape, generator=gen, device=device)
+            dyr = torch.randn(dy.shape, generator=gen, device=device)
+            rk, rp = quad.quad_bwd_kernel(xr, Fr, dyr), quad.quad_bwd_plain(xr, Fr, dyr)
+            torch.cuda.synchronize()
+            rel_real = max(rel_err(dxk, dxp), rel_err(dFk, dFp))
+            rel_rand = max(rel_err(rk[0], rp[0]), rel_err(rk[1], rp[1]))
+            # Sums of signed products over N points and L channels: 1e-4 on
+            # random input; the real cotangents cancel more, so 1e-3 there.
+            check(bool(torch.isfinite(dxk).all() and torch.isfinite(dFk).all()),
+                  "quad_bwd real: non-finite output")
+            check(rel_real <= 1e-3, f"quad_bwd real {tuple(x.shape)}: rel {rel_real}")
+            check(rel_rand <= 1e-4, f"quad_bwd random {tuple(x.shape)}: rel {rel_rand}")
+            b, by = bound_ms(4 * (2 * x.numel() + 2 * F.numel() + dy.numel()),
+                             6 * G * N * Lc * m * m, peaks)
+            rows["quad_bwd"].append({
+                "x": list(x.shape), "F": list(F.shape), "rel_vs_plain": rel_real,
+                "rel_vs_plain_random": rel_rand,
+                "max_abs_err": max(float((dxk - dxp).abs().max()), float((dFk - dFp).abs().max())),
+                "kernel_ms": median_ms(lambda: quad.quad_bwd_kernel(x, F, dy), n=30),
+                "plain_ms": median_ms(lambda: quad.quad_bwd_plain(x, F, dy), n=30),
+                "library_ms": None, "bound_ms": b, "bound_by": by})
+        elif key == "factor":
+            (A,) = args
+            Bn, m = math.prod(A.shape[:-2]), A.shape[-1]
+            real = check_factor(A, True, f"factor real {tuple(A.shape)}")
+            rand = check_factor(spd(gen, Bn, m, device).reshape(A.shape), False,
+                                f"factor random {tuple(A.shape)}")
+            b, by = bound_ms(4 * 3 * Bn * m * m, Bn * 2 * m**3 / 3, peaks)
+
+            def chain():
+                Lc, _ = torch.linalg.cholesky_ex(A)
+                eye = torch.eye(m, device=A.device).expand(A.shape)
+                return torch.linalg.solve_triangular(Lc, eye, upper=False)
+
+            rows["factor"].append({
+                "shape": list(A.shape), "smem": factor.uses_shared_memory(m), "real": real,
+                "random": rand,
+                "kernel_ms": median_ms(lambda: factor.cholesky_and_inverse_kernel(A)),
+                "plain_ms": median_ms(lambda: factor.cholesky_and_inverse_plain(A)),
+                "library_ms": median_ms(chain),
+                "library": "torch.linalg.cholesky_ex then solve_triangular (two calls)",
+                "bound_ms": b, "bound_by": by})
+        else:
+            raise AssertionError(f"unexpected capture {key}")
+
+    # The identity right-hand side (the unfused opt-in's tri_inverse of the
+    # Kuu lanes, and the fused factor's above m = 240): random factors, and
+    # a NaN pivot that must stay in its lane.
+    inverse = []
+    for shape in [(2, 200, 200), (2, 50, 50)]:
+        L = well_conditioned_factor(gen, shape, device)
+        L[0, 7, 7] = float("nan")
+        Ik = ts.tri_inverse_kernel(L)
+        Ip = ts.tri_inverse_plain(L[1:])
+        torch.cuda.synchronize()
+        check(not bool(torch.isfinite(Ik[0]).all()), f"tri_inverse {shape}: NaN pivot lost")
+        rel = rel_err(Ik[1:], Ip)
+        check(rel <= 1e-4, f"tri_inverse {shape}: rel {rel}")
+        check(bool((torch.triu(Ik[1:], 1) == 0).all()), f"tri_inverse {shape}: not lower")
+        L = L[1:].expand(shape)
+        m = shape[-1]
+        b, by = bound_ms(4 * shape[0] * (m * (m + 1) / 2 + m * m), shape[0] * m**3 / 3, peaks)
+        inverse.append({"shape": list(shape), "rel_vs_plain": rel,
+                        "kernel_ms": median_ms(lambda: ts.tri_inverse_kernel(L)),
+                        "plain_ms": median_ms(lambda: ts.tri_inverse_plain(L)),
+                        "bound_ms": b, "bound_by": by})
+
+    # NaN pivot in a solve with several lanes, and a failed lane in the
+    # fused factor (the jitter probes' contract).
+    L = well_conditioned_factor(gen, (3, 200, 200), device)
+    L[1, 5, 5] = float("nan")
+    X = ts.tri_solve_kernel(L, torch.randn(3, 200, 10, generator=gen, device=device))
+    torch.cuda.synchronize()
+    check(torch_isfinite_lanes(X).tolist() == [True, False, True], "trisolve: NaN lane leaked")
+    A = spd(gen, 4, 200, device)
+    A[1] -= 3.0 * torch.eye(200, device=device)
+    Lk, Ik = factor.cholesky_and_inverse_kernel(A)
+    torch.cuda.synchronize()
+    lower = torch.tril(torch.ones(200, 200, dtype=torch.bool, device=device))
+    for out in (Lk, Ik):
+        check(bool(torch.isnan(out[1][lower]).all()), "factor: failed lane not NaN below")
+        check(bool((out[1][~lower] == 0).all()), "factor: failed lane not 0 above")
+        check(bool(torch.isfinite(out[[0, 2, 3]]).all()), "factor: failed lane leaked")
+
+    # Autograd through each kernel on the card vs the plain path on the CPU.
+    Lg = well_conditioned_factor(gen, (2, 200, 200), device)
+    Bg = torch.randn(2, 200, 10, generator=gen, device=device)
+    xg = torch.randn(5, 1000, 200, generator=gen, device=device)
+    Fg = 0.1 * torch.randn(10, 200, 200, generator=gen, device=device)
+    xw = torch.randn(1, 1000, 200, generator=gen, device=device)
+    Fw = 0.1 * torch.randn(1, 2, 200, 200, generator=gen, device=device)
+    Ag = spd(gen, 14, 200, device)
+    cases = {
+        "trisolve": (lambda L, B: ts.tri_solve(L, B, False), (Lg, Bg)),
+        "trisolve_trans": (lambda L, B: ts.tri_solve(L, B, True), (Lg, Bg)),
+        "tri_inverse": (ts.tri_inverse, (Lg,)),
+        "quad_shared": (quad.quad_diag, (xg, Fg)),
+        "quad_per_view": (quad.quad_diag, (xw, Fw)),
+        "factor": (lambda A: torch.cat([t.flatten() for t in factor.cholesky_and_inverse(A)]),
+                   (Ag,)),
+    }
+    grad_rel = {}
+    for name, (fn, ins) in cases.items():
+        grads = []
+        for dev in (device, "cpu"):
+            leaves = [t.detach().to(dev).clone().requires_grad_(True) for t in ins]
+            out = fn(*leaves)
+            w = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(dev)
+            (out * w).sum().backward()
+            grads.append([t.grad.cpu() for t in leaves])
+        grad_rel[name] = max(rel_err(g, c) for g, c in zip(*grads))
+        check(grad_rel[name] <= 1e-3, f"{name}: gradient rel {grad_rel[name]}")
+    return {**rows, "tri_inverse": inverse, "nan_contract": "ok", "grad_rel_vs_plain": grad_rel}
+
+
+# Launches per training step of each path, derived from the code. Default
+# knobs: the jitter probe and the final factor slab, both Cholesky. Opt-ins:
+# one Cholesky probe (two rungs stacked in one launch at m = 200, one rung
+# at m = 50), the final slab through the fused factor, two cholesky_solves
+# (warp and data layers: two substitutions each) forward and their four
+# pullback substitutions backward, the quad-diag forward and backward in
+# each layer. No path calls a plain version on the card.
+DEFAULT_PER_STEP = {"cholesky": 2, "trisolve": 0, "quad_fwd": 0, "quad_bwd": 0, "factor": 0}
+OPTIN_PER_STEP = {"cholesky": 1, "trisolve": 8, "quad_fwd": 2, "quad_bwd": 2, "factor": 1}
+
+
+def phase_fit(name, model, n_epochs, S, expect_mode, per_step):
+    """Fit ``n_epochs`` steps with every count set to 0 just before and read
+    just after; the counts must be exactly ``per_step`` times the steps."""
     import numpy as np
     import torch
-    from spatial_alignment_tpu_torch.ops import cholesky as ch
 
     check(model.spec.svgp_solve_mode == expect_mode,
           f"{name}: solve mode {model.spec.svgp_solve_mode}, expected {expect_mode}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ch.launches = 0
-    ch.plain_calls = 0
+    reset_counts()
     t0 = time.perf_counter()
     losses = model.fit(n_epochs=n_epochs, lr=1e-2, S=S)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches, plain_calls = ch.launches, ch.plain_calls
+    launches, plain = read_counts()
     check(bool(np.isfinite(losses).all()), f"{name}: non-finite loss")
     first, last = float(np.mean(losses[:50])), float(np.mean(losses[-50:]))
     check(last < first, f"{name}: loss did not fall ({first} -> {last})")
-    check(launches == 2 * n_epochs, f"{name}: {launches} kernel launches for {n_epochs} steps")
-    check(plain_calls == 0, f"{name}: plain cholesky called {plain_calls} times")
+    for kernel, k in per_step.items():
+        check(launches[kernel] == k * n_epochs,
+              f"{name}: {launches[kernel]} {kernel} launches for {n_epochs} steps, "
+              f"expected {k} per step")
+    check(not any(plain.values()), f"{name}: plain versions called on the card: {plain}")
     emit(name, steps=n_epochs, seconds=dt, steps_per_s=n_epochs / dt,
-         launches=launches, launches_per_step=launches / n_epochs, plain_calls=plain_calls,
-         solve_mode=model.spec.svgp_solve_mode, loss_first50=first, loss_last50=last,
-         peak_mem_bytes=torch.cuda.max_memory_allocated())
-    return launches, dt / n_epochs
+         launches=launches, launches_per_step={k: v / n_epochs for k, v in launches.items()},
+         plain_calls=plain, solve_mode=model.spec.svgp_solve_mode, loss_first=float(losses[0]),
+         loss_first50=first, loss_last50=last, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return {"launches": launches, "losses": losses}
 
 
-def phase_profile(model, step_s: float, out_dir: Path, steps: int = 10, S: int = 5,
-                  top: int = 15):
+def phase_profile(name, model, out_dir: Path, steps: int = 10, S: int = 5, top: int = 15):
     """Device time of ``steps`` training steps by kernel name, from
-    torch.profiler, beside the unprofiled step time ``step_s``; the chrome
-    trace goes to ``out_dir``."""
+    torch.profiler, beside the step time of ``2 * steps`` unprofiled steps
+    just before it on the same model (the host's pace drifts over a run, so
+    the two come from one state); the chrome trace goes to ``out_dir``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     model.fit(n_epochs=2, lr=1e-2, S=S)  # warm the allocator outside the window
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(n_epochs=2 * steps, lr=1e-2, S=S)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (2 * steps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model.fit(n_epochs=steps, lr=1e-2, S=S)
         torch.cuda.synchronize()
@@ -318,23 +731,46 @@ def phase_profile(model, step_s: float, out_dir: Path, steps: int = 10, S: int =
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     check(busy_us > 0, "profiler recorded no device time")
-    chol_us = sum(r[1] for r in rows if "cholesky_" in r[0] and "_kernel" in r[0])
+    # The port's kernels by their names in csrc/ (cholesky_*_kernel,
+    # trisolve_kernel, quad_*_kernel, factor_*_kernel).
+    ours = {k: sum(r[1] for r in rows if k in r[0] and "_kernel" in r[0]) / busy_us
+            for k in ("cholesky_", "trisolve_", "quad_", "factor_")}
     out_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / "fit_m200_trace.json"))
-    emit("profile", steps=steps, step_ms=step_s * 1e3,
+    prof.export_chrome_trace(str(out_dir / f"{name}_trace.json"))
+    emit("profile", fit=name, steps=steps, step_ms=step_s * 1e3,
          device_busy_ms_per_step=busy_us / steps / 1e3,
          device_idle_share=1.0 - busy_us / steps / 1e6 / step_s,
          device_events_per_step=sum(r[2] for r in rows) / steps,
-         cholesky_share_of_busy=chol_us / busy_us,
+         share_of_busy={k.rstrip("_"): v for k, v in ours.items()},
          top=[{"name": k[:90], "ms_per_step": us / steps / 1e3, "calls_per_step": n / steps}
               for k, us, n in rows[:top]])
+
+
+def phase_ab(models, steps: int = 100, rounds: int = 2, S: int = 5):
+    """Steps/s of the m = 200 fit by the default route (A) and by the opt-in
+    route (B), in turns A B B A per round, in one process on one card: the
+    host's pace drifts from call to call, so only turns within a call
+    compare."""
+    import torch
+
+    order = [name for _ in range(rounds) for name in ("A", "B", "B", "A")]
+    rates = {"A": [], "B": []}
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models[name].fit(n_epochs=steps, lr=1e-2, S=S)
+        torch.cuda.synchronize()
+        rates[name].append(steps / (time.perf_counter() - t0))
+    emit("ab_fit_m200", order=order, steps_per_fit=steps,
+         default_steps_per_s=rates["A"], optin_steps_per_s=rates["B"])
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", type=Path,
-                        help="also profile 10 steps of the m = 200 fit (device time by "
-                             "kernel) and write the chrome trace into DIR")
+                        help="also profile 10 steps of each m = 200 fit (device time by "
+                             "kernel), write the chrome traces into DIR, and time the two "
+                             "fits in turns (A B B A)")
     args = parser.parse_args()
     try:
         import torch
@@ -370,51 +806,90 @@ def main() -> int:
     phase_parity(device)
 
     dd200, X200, vi200 = two_view_data(45, 10)
-    model = VariationalGPSA(dd200, m_X_per_view=200, m_G=200, n_latent_gps={"expression": 10},
-                            fixed_view_idx=0, mean_function="identity_fixed", device=device)
+    kw200 = dict(m_X_per_view=200, m_G=200, n_latent_gps={"expression": 10}, fixed_view_idx=0,
+                 mean_function="identity_fixed", device=device)
+    model = VariationalGPSA(dd200, **kw200)
     real_inputs = capture_cholesky_inputs(model)
     check([tuple(a.shape) for a in real_inputs] == [(2, 2, 200, 200), (14, 200, 200)],
           f"main-path cholesky shapes {[tuple(a.shape) for a in real_inputs]}")
-    results, real = phase_kernels(device, real_inputs, peaks)
+    chol_record, results, real = phase_kernels(device, real_inputs, peaks)
+
+    # The opt-in models: the same data and seed as the default ones. Their
+    # kernels' inputs come from one loss and gradient of each, drawn from
+    # the model's generator as the default model's capture does, so the
+    # first training step of each pair sees the same noise.
+    model_p = VariationalGPSA(dd200, **kw200, **OPT_INS)
+    dd50, _, _ = two_view_data(10, None)
+    kw50 = dict(m_X_per_view=50, m_G=50, n_latent_gps={"expression": None}, fixed_view_idx=0,
+                device=device)
+    model50_p = VariationalGPSA(dd50, **kw50, **OPT_INS)
+    captured = capture_kernel_inputs(model_p) + capture_kernel_inputs(model50_p)
+    new_record = phase_new_kernels(device, captured, peaks)
+    emit("kernels", cholesky=chol_record, **new_record)
 
     G_pre, _, _ = model.predict({"expression": X200})
-    launches, step_s = phase_fit("fit_m200", model, 200, 5, "mixed")
-
-    dd50, _, _ = two_view_data(10, None)
-    model50 = VariationalGPSA(dd50, m_X_per_view=50, m_G=50, n_latent_gps={"expression": None},
-                              fixed_view_idx=0, device=device)
-    phase_fit("fit_m50", model50, 300, 5, "kl_inverse")
+    fit200 = phase_fit("fit_m200", model, 200, 5, "mixed", DEFAULT_PER_STEP)
+    model50 = VariationalGPSA(dd50, **kw50)
+    phase_fit("fit_m50", model50, 300, 5, "kl_inverse", DEFAULT_PER_STEP)
+    fit200_p = phase_fit("fit_m200_pallas", model_p, 200, 5, "mixed", OPTIN_PER_STEP)
+    # The same function from the same parameters and noise: the first
+    # losses agree to float32 summation order.
+    first_rel = abs(fit200_p["losses"][0] - fit200["losses"][0]) / abs(fit200["losses"][0])
+    check(first_rel <= 1e-3, f"fit_m200_pallas: first loss rel {first_rel} vs fit_m200")
+    emit("fit_m200_pallas_vs_fit_m200", first_loss_rel=first_rel)
+    phase_fit("fit_m50_pallas", model50_p, 100, 5, "kl_inverse", OPTIN_PER_STEP)
 
     import numpy as np
 
     G_post, F_mean, F_var = model.predict({"expression": X200})
     fwd = model.forward({"expression": X200}, S=5)
-    arrays = [G_post["expression"], F_mean["expression"], F_var["expression"], *[d["expression"] for d in fwd]]
+    G_post_p, F_mean_p, F_var_p = model_p.predict({"expression": X200})
+    arrays = [G_post["expression"], F_mean["expression"], F_var["expression"],
+              *[d["expression"] for d in fwd], G_post_p["expression"], F_mean_p["expression"],
+              F_var_p["expression"]]
     check(all(np.isfinite(a).all() for a in arrays), "predict/forward: non-finite output")
-    check(G_post["expression"].shape == (4050, 2) and F_mean["expression"].shape == (4050, 30),
-          "predict: unexpected shapes")
+    for G_, F_ in ((G_post, F_mean), (G_post_p, F_mean_p)):
+        check(G_["expression"].shape == (4050, 2) and F_["expression"].shape == (4050, 30),
+              "predict: unexpected shapes")
     check(fwd[1]["expression"].shape == (5, 4050, 2), "forward: unexpected sample shape")
     emit("predict", aligned_error_data=aligned_error(X200, vi200),
          aligned_error_init=aligned_error(G_pre["expression"], vi200),
-         aligned_error_fit=aligned_error(G_post["expression"], vi200))
+         aligned_error_fit=aligned_error(G_post["expression"], vi200),
+         aligned_error_fit_pallas=aligned_error(G_post_p["expression"], vi200))
     if args.profile is not None:
-        phase_profile(model, step_s, args.profile)
+        phase_profile("fit_m200", model, args.profile)
+        phase_profile("fit_m200_pallas", model_p, args.profile)
+        phase_ab({"A": model, "B": model_p})
 
+    def entry(kernel, launches, row, max_abs_err, shape):
+        return {"name": kernel, "route": "cuda",
+                "source": f"spatial_alignment_tpu_torch/csrc/{SOURCES[kernel]}.cu",
+                "replaces": REPLACES[kernel], "launches": launches, "max_abs_err": max_abs_err,
+                "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": shape}
+
+    # Each kernel at the largest shape of its m = 200 path: the data layer's
+    # solve (L (200, 200), B (200, 10)) and quad-diag (x (5, 4050, 200),
+    # shared F (10, 200, 200)), the (14, 200, 200) factor slab. Launches are
+    # the counts of the path's 200-step fit: fit_m200 for the Cholesky,
+    # fit_m200_pallas for the others.
+    solve = next(r for r in new_record["trisolve"] if r["B"] == [200, 10] and not r["trans"])
+    qf = max(new_record["quad_fwd"], key=lambda r: math.prod(r["x"]))
+    qb = max(new_record["quad_bwd"], key=lambda r: math.prod(r["x"]))
+    fac = next(r for r in new_record["factor"] if r["shape"] == [14, 200, 200])
+    launches_p = fit200_p["launches"]
     main_shape = results[(14, 200, 200)]
-    summary = {"kernels": [{
-        "name": "cholesky",
-        "route": "cuda",
-        "source": "spatial_alignment_tpu_torch/csrc/cholesky.cu",
-        "replaces": "spatial_alignment_tpu/ops/pallas_cholesky.py:131",
-        "launches": launches,
-        "max_abs_err": real[1]["max_abs_err"],
-        "ms": main_shape["kernel_ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-        "shape": [14, 200, 200],
-    }]}
+    summary = {"kernels": [
+        entry("cholesky", fit200["launches"]["cholesky"], main_shape, real[1]["max_abs_err"],
+              [14, 200, 200]),
+        entry("trisolve", launches_p["trisolve"], solve, solve["real"]["max_abs_err"],
+              {"L": [200, 200], "B": [200, 10]}),
+        entry("quad_fwd", launches_p["quad_fwd"], qf, qf["max_abs_err"],
+              {"x": qf["x"], "F": qf["F"]}),
+        entry("quad_bwd", launches_p["quad_bwd"], qb, qb["max_abs_err"],
+              {"x": qb["x"], "F": qb["F"]}),
+        entry("factor", launches_p["factor"], fac, fac["real"]["max_abs_err"], [14, 200, 200]),
+    ]}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -30,44 +30,11 @@
 // barriers per column, and at most one block per matrix (14 of 132 SMs busy
 // at batch 14), set its time, not bytes or FLOPs.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-// Right-looking elimination on a row-major m x m matrix `a` (shared or
-// global memory) with the shared column buffer `col` (m floats).
-// Returns false when a pivot was not > 0; the same value in every thread.
-__device__ bool factor_in_place(float* a, float* col, int m) {
-  const int tid = threadIdx.x;
-  for (int j = 0; j < m; ++j) {
-    const float piv = a[j * m + j];
-    __syncthreads();  // every thread has read the pivot before it is written
-    if (!(piv > 0.0f)) {
-      return false;  // uniform: every thread read the same pivot
-    }
-    const float d = sqrtf(piv);
-    for (int i = j + tid; i < m; i += kThreads) {
-      const float v = (i == j) ? d : a[i * m + j] / d;
-      a[i * m + j] = v;
-      col[i] = v;
-    }
-    __syncthreads();  // column j of L is complete
-    const int n = m - j - 1;  // trailing size
-    const int base = j + 1;
-    for (int t = tid; t < n * n; t += kThreads) {
-      const int r = t / n;
-      const int c = t - r * n;
-      if (c <= r) {
-        a[(base + r) * m + base + c] -= col[base + r] * col[base + c];
-      }
-    }
-    __syncthreads();  // trailing update visible before the next pivot read
-  }
-  return true;
-}
+constexpr int kThreads = kCholThreads;
 
 __global__ void __launch_bounds__(kThreads)
 cholesky_smem_kernel(const float* __restrict__ in, float* __restrict__ out, int m) {
@@ -82,7 +49,7 @@ cholesky_smem_kernel(const float* __restrict__ in, float* __restrict__ out, int 
   __syncthreads();
   const bool ok = factor_in_place(a, col, m);
   __syncthreads();
-  const float nan = __int_as_float(0x7fc00000);
+  const float nan = quiet_nan();
   for (int t = threadIdx.x; t < mm; t += kThreads) {
     const int r = t / m;
     const int c = t - r * m;
@@ -101,22 +68,12 @@ cholesky_global_kernel(const float* __restrict__ in, float* __restrict__ out, in
   __syncthreads();
   const bool ok = factor_in_place(a, col, m);
   __syncthreads();
-  const float nan = __int_as_float(0x7fc00000);
+  const float nan = quiet_nan();
   for (size_t t = threadIdx.x; t < mm; t += kThreads) {
     const size_t r = t / m;
     const size_t c = t - r * m;
     a[t] = (c <= r) ? (ok ? a[t] : nan) : 0.0f;
   }
-}
-
-int smem_optin_limit() {
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-      cudaSuccess)
-    return -1;
-  return v;
 }
 
 }  // namespace

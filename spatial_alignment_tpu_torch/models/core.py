@@ -8,6 +8,11 @@ KL by static indexing, and their slots in the per-view outputs are filled
 out of place (``torch.stack``), so nothing saved for backward is written in
 place.
 
+Kernel opt-ins: ``spec.cholesky_impl``, ``spec.quad_diag_impl`` and
+``spec.fused_factor_inverse`` reach every place the JAX package passes them
+(``svgp_mean_var``, ``_kuu_inverses``, ``compute_factors``, the KL); see
+:mod:`..ops.linalg` and :mod:`..ops.quad` for what each launches.
+
 Monte-Carlo noise: ``warp_layer``, ``data_layer``, ``forward`` and
 ``negative_elbo`` take the standard-normal draws as optional tensors (the
 tests pass the JAX package's draws) and otherwise draw them from the given
@@ -21,6 +26,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops import quad
 from ..ops.gram import gram
 from ..ops.kernels import get_kernel
 from ..ops.linalg import (
@@ -68,12 +74,16 @@ class ForwardResult(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _quad_diag(xT: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+def _quad_diag(
+    xT: torch.Tensor, factors: torch.Tensor, impl: Optional[str] = None
+) -> torch.Tensor:
     """Per-point quadratic-form diagonals sum_k (xT @ factors)^2 -> (..., B, N).
 
-    xT (..., N, m); factors (..., B, m, m) per output-channel factors."""
-    t = xT.unsqueeze(-3) @ factors  # (..., B, N, m)
-    return torch.square(t).sum(dim=-1)
+    xT (..., N, m); factors (B, m, m) or (..., B, m, m) per output-channel
+    factors. ``impl="pallas"`` takes the kernels of :mod:`..ops.quad`."""
+    if impl == "pallas":
+        return quad.quad_diag(xT, factors)
+    return quad.quad_diag_plain(xT, factors)
 
 
 def svgp_mean_var(
@@ -87,38 +97,42 @@ def svgp_mean_var(
     diagonal_offset: float,
     solve_mode: str = "solve",
     Kuu_inv: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+    quad_impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SVGP marginal posterior at the Kuf columns (non-whitened).
 
     Returns mu_tilde (..., N, C) and Sigma_tilde (..., B, N). ``solve_mode``
     as in ``ModelSpec.svgp_solve_mode``; ``Kuu_inv`` is a precomputed
-    chol(Kuu)^-1 for the modes that use it.
+    chol(Kuu)^-1 for the modes that use it. ``impl`` routes the triangular
+    solves and ``quad_impl`` the quadratic forms (``ModelSpec.cholesky_impl``
+    and ``quad_diag_impl``).
     """
     if solve_mode in ("inverse", "mixed"):
-        Linv = Kuu_inv if Kuu_inv is not None else tri_inverse(Kuu_chol)
+        Linv = Kuu_inv if Kuu_inv is not None else tri_inverse(Kuu_chol, impl=impl)
     if solve_mode == "mixed":
         half = Linv @ Kuf  # (..., m, N) = L^-1 Kuf
         aKa = torch.square(half).sum(dim=-2)  # diag(Kfu Kuu^-1 Kuf)
         # Mean through the narrow (width-C) backward-stable solve.
-        v = cholesky_solve(Kuu_chol, delta - mu_z)  # (..., m, C)
+        v = cholesky_solve(Kuu_chol, delta - mu_z, impl=impl)  # (..., m, C)
         mu_tilde = mu_x + Kuf.transpose(-1, -2) @ v
         # alpha^T Omega_L = (L^-1 Kuf)^T (L^-1 Omega_L): fold Linv into the
         # m x m channel factors so alpha^T is never formed.
         C_om = Linv.unsqueeze(-3) @ Omega_tril  # (..., B, m, m)
-        aOa = _quad_diag(half.transpose(-1, -2), C_om)
+        aOa = _quad_diag(half.transpose(-1, -2), C_om, quad_impl)
     elif solve_mode == "inverse":
         half = Linv @ Kuf
         alphaT = half.transpose(-1, -2) @ Linv  # (..., N, m) = Kfu Kuu^-1
         aKa = torch.square(half).sum(dim=-2)
         mu_tilde = mu_x + alphaT @ (delta - mu_z)
-        aOa = _quad_diag(alphaT, Omega_tril)
+        aOa = _quad_diag(alphaT, Omega_tril, quad_impl)
     elif solve_mode in ("solve", "kl_inverse"):
-        alpha = cholesky_solve(Kuu_chol, Kuf)  # (..., m, N)
+        alpha = cholesky_solve(Kuu_chol, Kuf, impl=impl)  # (..., m, N)
         alphaT = alpha.transpose(-1, -2)
         a_t_K = alphaT @ Kuu_chol
         aKa = torch.square(a_t_K).sum(dim=-1)
         mu_tilde = mu_x + alphaT @ (delta - mu_z)
-        aOa = _quad_diag(alphaT, Omega_tril)
+        aOa = _quad_diag(alphaT, Omega_tril, quad_impl)
     else:
         raise ValueError(f"unknown solve mode {solve_mode!r}")
     sigma = (
@@ -188,11 +202,12 @@ def _kuu_inverses(spec: ModelSpec, L_w, L_d, Va: int, m_X: int, m_G: int):
     """(warp, data) explicit Kuu-Cholesky inverses, merged when sizes match."""
     if not _wants_kuu_inverse(spec):
         return None, None
+    impl = spec.cholesky_impl
     if m_X == m_G and Va > 0:
-        inv = tri_inverse(torch.cat([L_w, L_d[None]], dim=0))
+        inv = tri_inverse(torch.cat([L_w, L_d[None]], dim=0), impl=impl)
         return inv[:Va], inv[Va]
-    inv_w = tri_inverse(L_w) if Va else None
-    return inv_w, tri_inverse(L_d)
+    inv_w = tri_inverse(L_w, impl=impl) if Va else None
+    return inv_w, tri_inverse(L_d, impl=impl)
 
 
 def compute_factors(spec: ModelSpec, hp: dict) -> FactorPass:
@@ -223,7 +238,9 @@ def compute_factors(spec: ModelSpec, hp: dict) -> FactorPass:
             torch.cat([Kuu_w, Kuu_d[None]], dim=0),
             torch.cat([Om_w_flat, Om_d_flat], dim=0),
             eps,
+            impl=spec.cholesky_impl,
             n_inv=n_inv,
+            fused=spec.fused_factor_inverse,
         )
         L_w, L_d = Lg[:Va], Lg[Va]
         Om_w_tril = Lp[: Va * D].reshape(Va, D, m_X, m_X)
@@ -300,7 +317,7 @@ def warp_layer(
     dt, dev = X_all.dtype, X_all.device
     L_a, Om_a, Linv_a = factors[0], factors[1], factors[2] if len(factors) > 2 else None
     if spec.svgp_solve_mode in ("inverse", "mixed") and Linv_a is None and Va:
-        Linv_a = tri_inverse(L_a)
+        Linv_a = tri_inverse(L_a, impl=spec.cholesky_impl)
 
     m = hp["Xtilde"].shape[1]
     eye_m = torch.eye(m, dtype=dt, device=dev)
@@ -316,6 +333,7 @@ def warp_layer(
         mu_a, sig_a = svgp_mean_var(
             kff, Kuf, L_a, mu_x, mu_z_a, tk(hp["delta_G"]), Om_a, eps,
             solve_mode=spec.svgp_solve_mode, Kuu_inv=Linv_a,
+            impl=spec.cholesky_impl, quad_impl=spec.quad_diag_impl,
         )
     if Va == V:
         mu_tilde, sigma, mu_z = mu_a, sig_a, mu_z_a
@@ -373,7 +391,7 @@ def _data_factors(spec: ModelSpec, hp: dict, factors):
     L_F, Om_by_mod = factors[0], factors[1]
     Linv_F = factors[2] if len(factors) > 2 else None
     if spec.svgp_solve_mode in ("inverse", "mixed") and Linv_F is None:
-        Linv_F = tri_inverse(L_F)
+        Linv_F = tri_inverse(L_F, impl=spec.cholesky_impl)
     return L_F, Om_by_mod, Linv_F
 
 
@@ -385,6 +403,7 @@ def _data_moments(spec, hp, G_pts, L_F, Linv_F, delta, Om_tril):
     return svgp_mean_var(
         kff, Kuf, L_F, 0.0, 0.0, delta, Om_tril, spec.diagonal_offset,
         solve_mode=spec.svgp_solve_mode, Kuu_inv=Linv_F,
+        impl=spec.cholesky_impl, quad_impl=spec.quad_diag_impl,
     )
 
 
@@ -533,7 +552,10 @@ def kl_divergence(spec: ModelSpec, hp: dict, warp_aux: WarpAux, data_aux: DataAu
     KL = torch.zeros((), dtype=mu_q.dtype, device=mu_q.device)
     for entries in groups.values():
         cat = lambda i: torch.cat([e[i] for e in entries], dim=0)
-        KL = KL + kl_mvn_chol(cat(0), cat(1), cat(2), cat(3), chol_p_inv=cat(4) if use_inv else None).sum()
+        KL = KL + kl_mvn_chol(
+            cat(0), cat(1), cat(2), cat(3),
+            chol_p_inv=cat(4) if use_inv else None, impl=spec.cholesky_impl,
+        ).sum()
     return KL
 
 

@@ -10,8 +10,13 @@ stacked and masked, per modality:
 ``ModelSpec`` has the same fields and ``auto`` resolutions as the JAX
 package's, so spec dicts round-trip between the two. The port computes in
 float32 whatever the precision names say (they count TPU matrix-unit
-passes), and it dispatches every Cholesky of a CUDA tensor to its kernel
-whatever ``cholesky_impl`` says; both fields are kept for the round trip.
+passes; the names are kept for the round trip). The three kernel opt-ins
+route as in the JAX package, without its TPU shape gates:
+``cholesky_impl="pallas"`` sends the triangular solves and inverses to the
+trisolve kernel (every Cholesky of a CUDA tensor runs the Cholesky kernel
+whatever it says), ``quad_diag_impl="pallas"`` the variance's quadratic
+forms to the quad kernels, and ``fused_factor_inverse="fused"`` the final
+factor slab to the fused factor-and-inverse kernel.
 """
 
 from __future__ import annotations
@@ -139,8 +144,6 @@ def check_supported(spec: ModelSpec) -> None:
         (spec.whitened_variational, "whitened_variational=True", "queue A item 10"),
         (spec.data_chunk_size is not None, "data_chunk_size", "queue A item 8"),
         (not spec.merged_factor_dispatch, "merged_factor_dispatch=False", "queue A item 14"),
-        (spec.quad_diag_impl == "pallas", "quad_diag_impl='pallas'", "queue B item 4"),
-        (spec.fused_factor_inverse == "fused", "fused_factor_inverse='fused'", "queue B item 5"),
     ]
     for bad, what, item in unsupported:
         if bad:

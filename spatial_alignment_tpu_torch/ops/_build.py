@@ -6,8 +6,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source, so an edited source never loads
-a stale library. The build happens at first use, inside the function that
+The file name carries a hash of the source and of every shared header
+(``csrc/*.cuh``), so an edited source or header never loads a stale
+library. The build happens at first use, inside the function that
 launches a kernel; importing this module compiles nothing. ``build_all``
 starts one nvcc per source, all at once, and waits for them together.
 """
@@ -26,7 +27,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("cholesky",)
+SOURCES = ("cholesky", "trisolve", "quad", "factor")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -49,8 +50,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

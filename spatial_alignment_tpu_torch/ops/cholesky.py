@@ -27,7 +27,13 @@ import torch
 
 from . import _build
 
-__all__ = ["cholesky", "cholesky_kernel", "cholesky_plain", "uses_shared_memory"]
+__all__ = [
+    "cholesky",
+    "cholesky_kernel",
+    "cholesky_plain",
+    "murray_backward",
+    "uses_shared_memory",
+]
 
 launches = 0
 plain_calls = 0
@@ -110,6 +116,21 @@ def _forward(a: torch.Tensor) -> torch.Tensor:
     return cholesky_kernel(sym)
 
 
+def murray_backward(L: torch.Tensor, Lbar: torch.Tensor) -> torch.Tensor:
+    """Cotangent of the symmetric input from the factor's, Murray (2016):
+    S = L^T Lbar, P = tril(S) - diag(S)/2, Abar = 1/2 L^-T (P + P^T) L^-1,
+    symmetrized, as ``pallas_cholesky._chol_bwd``."""
+    S = L.transpose(-1, -2) @ Lbar
+    P = torch.tril(S) - 0.5 * torch.diag_embed(torch.diagonal(S, dim1=-2, dim2=-1))
+    Psym = P + P.transpose(-1, -2)
+    Lt = L.transpose(-1, -2)
+    tmp = torch.linalg.solve_triangular(Lt, Psym, upper=True)  # L^-T Psym
+    X = torch.linalg.solve_triangular(
+        Lt, tmp.transpose(-1, -2), upper=True
+    ).transpose(-1, -2)
+    return 0.25 * (X + X.transpose(-1, -2))
+
+
 class _Cholesky(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a):
@@ -119,18 +140,8 @@ class _Cholesky(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, Lbar):
-        # Murray (2016): S = L^T Lbar, P = tril(S) - diag(S)/2,
-        # Abar = 1/2 L^-T (P + P^T) L^-1, as pallas_cholesky._chol_bwd.
         (L,) = ctx.saved_tensors
-        S = L.transpose(-1, -2) @ Lbar
-        P = torch.tril(S) - 0.5 * torch.diag_embed(torch.diagonal(S, dim1=-2, dim2=-1))
-        Psym = P + P.transpose(-1, -2)
-        Lt = L.transpose(-1, -2)
-        tmp = torch.linalg.solve_triangular(Lt, Psym, upper=True)  # L^-T Psym
-        X = torch.linalg.solve_triangular(
-            Lt, tmp.transpose(-1, -2), upper=True
-        ).transpose(-1, -2)
-        return 0.25 * (X + X.transpose(-1, -2))
+        return murray_backward(L, Lbar)
 
 
 def cholesky(a: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,24 @@
 """Numerically hardened linear algebra for the SVGP layers, in PyTorch.
 
-Counterpart of ``spatial_alignment_tpu/ops/linalg.py`` on its default path:
-jittered Cholesky with NaN-probe escalation, the merged factor slabs,
-triangular and Cholesky solves, and Gaussian KLs. Every factorization goes
-through :func:`.cholesky.cholesky`, so a CUDA tensor always runs the
-hand-written kernel. Triangular solves and inverses are
-``torch.linalg.solve_triangular``, as the JAX default leaves them to XLA.
+Counterpart of ``spatial_alignment_tpu/ops/linalg.py``: jittered Cholesky
+with NaN-probe escalation, the merged factor slabs, triangular and Cholesky
+solves, and Gaussian KLs. Every factorization goes through
+:func:`.cholesky.cholesky`, so a CUDA tensor always runs the hand-written
+Cholesky kernel.
+
+The kernel opt-ins route as in the JAX package:
+  - ``impl="pallas"`` (``ModelSpec.cholesky_impl``) sends every
+    :func:`tri_solve`, :func:`tri_inverse` and :func:`cholesky_solve` to
+    :mod:`.trisolve`; ``auto``, ``xla`` and None keep
+    ``torch.linalg.solve_triangular``, as JAX keeps XLA's solve.
+  - ``fused="fused"`` (``ModelSpec.fused_factor_inverse``) sends the
+    factor-and-inverse of :func:`jittered_cholesky_inverse` and
+    :func:`joint_factor_cholesky_inverse` to :mod:`.factor`; ``auto``,
+    ``off`` and None keep the Cholesky followed by :func:`tri_inverse`.
+Divergence from the JAX package: its gates on the TPU's shapes (the
+128-lane padding minimum ``m >= 48``, the batch minimum of the fused slab,
+the VMEM budgets of ``fits_vmem``) do not apply on the GPU and are dropped,
+so an explicit opt-in always takes its kernel, at any size.
 """
 
 from __future__ import annotations
@@ -15,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import factor, trisolve
 from .cholesky import cholesky
 
 __all__ = [
@@ -99,12 +113,32 @@ def jittered_cholesky(mat: torch.Tensor, eps: float) -> torch.Tensor:
     return cholesky(mat + jitter[..., None, None] * _eye(mat.shape[-1], mat))
 
 
+def _fused(fused: Optional[str]) -> bool:
+    """Whether ``fused_factor_inverse`` asks for the fused kernel."""
+    if fused in (None, "off", "auto"):
+        return False
+    if fused != "fused":
+        raise ValueError(
+            f"fused_factor_inverse must be 'auto', 'fused' or 'off', got {fused!r}"
+        )
+    return True
+
+
 def jittered_cholesky_inverse(
-    mat: torch.Tensor, eps: float
+    mat: torch.Tensor,
+    eps: float,
+    *,
+    impl: Optional[str] = None,
+    fused: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`jittered_cholesky` plus the explicit factor inverse L^-1."""
-    L = jittered_cholesky(mat, eps)
-    return L, tri_inverse(L)
+    """:func:`jittered_cholesky` plus the explicit factor inverse L^-1, from
+    one fused launch under ``fused="fused"``."""
+    jitter = _probed_jitter(mat, eps)
+    jittered = mat + jitter[..., None, None] * _eye(mat.shape[-1], mat)
+    if _fused(fused):
+        return factor.cholesky_and_inverse(jittered)
+    L = cholesky(jittered)
+    return L, tri_inverse(L, impl=impl)
 
 
 def joint_factor_cholesky_inverse(
@@ -112,7 +146,9 @@ def joint_factor_cholesky_inverse(
     psd_sqt: Optional[torch.Tensor],
     eps: float,
     *,
+    impl: Optional[str] = None,
     n_inv: int = 0,
+    fused: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Factor a Gram slab and a PSD-product slab in ONE final call.
 
@@ -120,6 +156,8 @@ def joint_factor_cholesky_inverse(
     free square factors A whose products A A^T + eps * max(1, mean diag) * I
     are factored without probes (PSD by construction). Returns
     (L_gram, L_psd | None, inverses of the first ``n_inv`` factors | None).
+    With ``n_inv`` and ``fused="fused"`` the whole slab factors and inverts
+    in one launch and the first ``n_inv`` inverses are kept.
     """
     jitter = _probed_jitter(gram, eps)
     m = gram.shape[-1]
@@ -131,8 +169,12 @@ def joint_factor_cholesky_inverse(
         mat = psd_sqt @ psd_sqt.transpose(-1, -2)
         scale = _diag_mean(mat).detach()
         slab = torch.cat([jittered, mat + (eps * scale)[..., None, None] * eye], dim=0)
-    L = cholesky(slab)
-    inv = tri_inverse(L[:n_inv]) if n_inv else None
+    if n_inv and _fused(fused):
+        L, Linv = factor.cholesky_and_inverse(slab)
+        inv = Linv[:n_inv]
+    else:
+        L = cholesky(slab)
+        inv = tri_inverse(L[:n_inv], impl=impl) if n_inv else None
     Bg = gram.shape[0]
     if psd_sqt is None:
         return L, None, inv
@@ -154,23 +196,30 @@ def factor_psd_cholesky(sqt: torch.Tensor, eps: float) -> torch.Tensor:
     return cholesky(mat + (eps * scale)[..., None, None] * _eye(mat.shape[-1], mat))
 
 
-def tri_solve(chol: torch.Tensor, rhs: torch.Tensor, *, trans: bool = False) -> torch.Tensor:
-    """Solve L x = rhs (L^T x = rhs when ``trans``); batch dims broadcast."""
-    if trans:
-        return torch.linalg.solve_triangular(chol.transpose(-1, -2), rhs, upper=True)
-    return torch.linalg.solve_triangular(chol, rhs, upper=False)
+def tri_solve(
+    chol: torch.Tensor, rhs: torch.Tensor, *, trans: bool = False, impl: Optional[str] = None
+) -> torch.Tensor:
+    """Solve L x = rhs (L^T x = rhs when ``trans``); batch dims broadcast.
+    ``impl="pallas"`` takes :mod:`.trisolve`."""
+    if impl == "pallas":
+        return trisolve.tri_solve(chol, rhs, trans)
+    return trisolve.tri_solve_plain(chol, rhs, trans)
 
 
-def tri_inverse(chol: torch.Tensor) -> torch.Tensor:
+def tri_inverse(chol: torch.Tensor, *, impl: Optional[str] = None) -> torch.Tensor:
     """Explicit inverse of a lower-triangular factor: one width-m solve
-    against I, differentiated by autograd through the solve."""
-    eye = _eye(chol.shape[-1], chol).expand(chol.shape)
-    return torch.linalg.solve_triangular(chol, eye, upper=False)
+    against I, differentiated by autograd through the solve.
+    ``impl="pallas"`` takes :mod:`.trisolve`'s identity-RHS kernel."""
+    if impl == "pallas":
+        return trisolve.tri_inverse(chol)
+    return trisolve.tri_inverse_plain(chol)
 
 
-def cholesky_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def cholesky_solve(
+    chol: torch.Tensor, rhs: torch.Tensor, *, impl: Optional[str] = None
+) -> torch.Tensor:
     """Solve A x = rhs given A = L L^T: L^T \\ (L \\ rhs), as cho_solve."""
-    return tri_solve(chol, tri_solve(chol, rhs), trans=True)
+    return tri_solve(chol, tri_solve(chol, rhs, impl=impl), trans=True, impl=impl)
 
 
 def chol_logdet(chol: torch.Tensor) -> torch.Tensor:
@@ -193,6 +242,8 @@ def kl_mvn_chol(
     mu_p: torch.Tensor,
     chol_p: torch.Tensor,
     chol_p_inv: Optional[torch.Tensor] = None,
+    *,
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
     """KL( N(mu_q, Lq Lq^T) || N(mu_p, Lp Lp^T) ), batched:
     0.5 [ |Lp^-1 Lq|_F^2 + |Lp^-1 (mu_p - mu_q)|^2 - k + log|Sp| - log|Sq| ].
@@ -204,7 +255,7 @@ def kl_mvn_chol(
         [chol_q.expand(batch + chol_q.shape[-2:]), diff.expand(batch + diff.shape[-2:])],
         dim=-1,
     )
-    sol = chol_p_inv @ rhs if chol_p_inv is not None else tri_solve(chol_p, rhs)
+    sol = chol_p_inv @ rhs if chol_p_inv is not None else tri_solve(chol_p, rhs, impl=impl)
     trace_term = torch.square(sol[..., :k]).sum(dim=(-2, -1))
     quad = torch.square(sol[..., k:]).sum(dim=(-2, -1))
     logdet = chol_logdet(chol_p) - chol_logdet(chol_q)

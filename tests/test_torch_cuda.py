@@ -1,8 +1,10 @@
-"""PyTorch port on the card: the CUDA Cholesky kernel against its plain
+"""PyTorch port on the card: each CUDA kernel (Cholesky, triangular solve,
+quad-diag forward and backward, fused factor and inverse) against its plain
 version, and the model's loss, gradients and training loop on the card
-against the same computation on the CPU.
+against the same computation on the CPU, with the default knobs and with
+the three kernel opt-ins.
 
-Every test here needs a CUDA device and nvcc (the kernel is built from
+Every test here needs a CUDA device and nvcc (the kernels are built from
 ``csrc/`` at first use); without a device each one skips. The file imports
 neither jax nor the JAX package, so it also runs where only the port's
 dependencies are installed:
@@ -10,9 +12,11 @@ dependencies are installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: rel 1e-4 for factors of well-conditioned (cond < ~10) float32
-input, where the kernel and the plain version eliminate in other orders;
-rel 1e-4 on the loss and 1e-3 on gradients between card and CPU, where
-every reduction of the step runs in another order.
+input, where the kernel and the plain version eliminate in other orders,
+and likewise for solves, inverses and quad-diag sums (float32 sums of m
+products in another order); rel 1e-4 on the loss and 1e-3 on gradients
+between card and CPU, where every reduction of the step runs in another
+order.
 """
 
 import math
@@ -24,6 +28,8 @@ import torch
 from spatial_alignment_tpu_torch import VariationalGPSA
 from spatial_alignment_tpu_torch.models import core
 from spatial_alignment_tpu_torch.ops import cholesky as ch
+from spatial_alignment_tpu_torch.ops import factor, quad
+from spatial_alignment_tpu_torch.ops import trisolve as ts
 
 pytestmark = pytest.mark.cuda
 
@@ -43,6 +49,10 @@ def _spd(rng, B, m):
 def _rel(a, b):
     a, b = a.detach().double().cpu(), b.detach().double().cpu()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _factor(rng, B, m):
+    return np.linalg.cholesky(_spd(rng, B, m).astype(np.float64)).astype(np.float32)
 
 
 def _tiny_data():
@@ -114,3 +124,152 @@ def test_cuda_fit_launches_the_kernel_every_step(cuda_device):
     assert np.isfinite(losses).all()
     assert ch.launches == 2 * 5  # the jitter probe and the final factorization
     assert ch.plain_calls == 0
+
+
+OPT_INS = dict(cholesky_impl="pallas", quad_diag_impl="pallas", fused_factor_inverse="fused")
+
+# The main path's solves (warp and data layers of the m = 200 fit) and the
+# m = 50 fit's width-N solves: (L shape, B shape).
+_SOLVES = [((1, 200, 200), (1, 200, 2)), ((200, 200), (200, 10)), ((50, 50), (5, 50, 200))]
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("l_shape,b_shape", _SOLVES)
+def test_cuda_trisolve_matches_plain(cuda_device, l_shape, b_shape, trans):
+    rng = np.random.default_rng(9)
+    L = torch.from_numpy(_factor(rng, 1, l_shape[-1]).reshape(l_shape)).to(cuda_device)
+    B = torch.from_numpy(rng.standard_normal(b_shape).astype(np.float32)).to(cuda_device)
+    L = L.expand(b_shape[:-2] + L.shape[-2:])
+    before = ts.launches
+    X = ts.tri_solve_kernel(L, B, trans)
+    torch.cuda.synchronize()
+    assert ts.launches == before + 1
+    assert _rel(X, ts.tri_solve_plain(L, B, trans)) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(2, 200, 200), (2, 50, 50)])
+def test_cuda_tri_inverse_matches_plain(cuda_device, shape):
+    L = torch.from_numpy(_factor(np.random.default_rng(10), shape[0], shape[-1])).to(cuda_device)
+    L[0, 5, 5] = float("nan")  # a NaN pivot stays in its lane
+    Inv = ts.tri_inverse_kernel(L)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(Inv[0]).all()
+    assert _rel(Inv[1:], ts.tri_inverse_plain(L[1:])) <= 1e-4
+    assert torch.count_nonzero(torch.triu(Inv[1:], 1)) == 0
+
+
+# The quad-diag's forms on the path: data layer (S, N, m) with shared
+# (L, m, m), warp layer (V, N, m) with per-view (V, D, m, m).
+_QUADS = [((5, 8100, 200), (10, 200, 200)), ((1, 4050, 200), (1, 2, 200, 200)),
+          ((5, 200, 50), (30, 50, 50))]
+
+
+@pytest.mark.parametrize("x_shape,f_shape", _QUADS)
+def test_cuda_quad_matches_plain(cuda_device, x_shape, f_shape):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).to(cuda_device)
+    F = torch.from_numpy((0.1 * rng.standard_normal(f_shape)).astype(np.float32)).to(cuda_device)
+    dy = torch.from_numpy(
+        rng.standard_normal((x_shape[0], f_shape[-3], x_shape[1])).astype(np.float32)
+    ).to(cuda_device)
+    f0, b0 = quad.fwd_launches, quad.bwd_launches
+    y = quad.quad_fwd_kernel(x, F)
+    dx, dF = quad.quad_bwd_kernel(x, F, dy)
+    torch.cuda.synchronize()
+    assert (quad.fwd_launches, quad.bwd_launches) == (f0 + 1, b0 + 1)
+    assert _rel(y, quad.quad_diag_plain(x, F)) <= 1e-4
+    dx_p, dF_p = quad.quad_bwd_plain(x, F, dy)
+    assert _rel(dx, dx_p) <= 1e-4
+    assert _rel(dF, dF_p) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(14, 200, 200), (34, 50, 50), (2, 256, 256)])
+def test_cuda_factor_matches_plain(cuda_device, shape):
+    A = torch.from_numpy(_spd(np.random.default_rng(12), shape[0], shape[-1])).to(cuda_device)
+    A[0] -= 3.0 * torch.eye(shape[-1], device=cuda_device)  # an indefinite lane
+    before = factor.launches
+    L, Linv = factor.cholesky_and_inverse_kernel(A)
+    torch.cuda.synchronize()
+    assert factor.launches == before + 1
+    lower = torch.tril(torch.ones(shape[-1], shape[-1], dtype=torch.bool, device=cuda_device))
+    for out in (L, Linv):
+        assert torch.isnan(out[0][lower]).all()
+        assert (out[0][~lower] == 0).all()
+    Lp, Linvp = factor.cholesky_and_inverse_plain(A[1:])
+    assert _rel(L[1:], Lp) <= 1e-4
+    assert _rel(Linv[1:], Linvp) <= 1e-4
+
+
+def test_cuda_kernel_gradients_match_cpu(cuda_device):
+    """Autograd through each new kernel on the card against the plain
+    path on the CPU, same inputs and cotangents."""
+    rng = np.random.default_rng(13)
+    Lf = torch.from_numpy(_factor(rng, 2, 40))
+    B = torch.from_numpy(rng.standard_normal((2, 40, 6)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((3, 70, 40)).astype(np.float32))
+    F = torch.from_numpy((0.1 * rng.standard_normal((4, 40, 40))).astype(np.float32))
+    A = torch.from_numpy(_spd(rng, 3, 40))
+    cases = [
+        lambda L, B, x, F, A: ts.tri_solve(L, B, False),
+        lambda L, B, x, F, A: ts.tri_solve(L, B, True),
+        lambda L, B, x, F, A: ts.tri_inverse(L),
+        lambda L, B, x, F, A: quad.quad_diag(x, F),
+        lambda L, B, x, F, A: torch.cat([t.flatten() for t in factor.cholesky_and_inverse(A)]),
+    ]
+    for fn in cases:
+        grads = []
+        for dev in (cuda_device, torch.device("cpu")):
+            ins = [t.detach().to(dev).clone().requires_grad_(True) for t in (Lf, B, x, F, A)]
+            out = fn(*ins)
+            w = torch.from_numpy(
+                np.random.default_rng(14).standard_normal(out.shape).astype(np.float32)
+            ).to(dev)
+            (out * w).sum().backward()
+            grads.append([t.grad for t in ins])
+        assert any(g is not None for g in grads[0])
+        for g, c in zip(*grads):
+            assert (g is None) == (c is None)
+            if g is not None:
+                assert _rel(g, c) <= 1e-3
+
+
+def test_cuda_opt_in_negative_elbo_matches_cpu(cuda_device):
+    dd = _tiny_data()
+    kw = dict(m_X_per_view=16, m_G=16, n_latent_gps={"expression": 2}, fixed_view_idx=0,
+              svgp_solve_mode="mixed", **OPT_INS)
+    S = 3
+    rng = np.random.default_rng(1)
+    wn = torch.from_numpy(rng.standard_normal((S, 2, 40, 2)).astype(np.float32))
+    dn = torch.from_numpy(rng.standard_normal((S, 80, 2)).astype(np.float32))
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        m = VariationalGPSA(dd, device=dev, **kw)
+        with torch.no_grad():  # moderate lengthscales keep the Grams well conditioned
+            m.params["warp_kernel_lengthscales"].fill_(math.log(2.0))
+            m.params["data_kernel_lengthscale"].fill_(math.log(2.0))
+        loss = core.negative_elbo(m.spec, m.params, m.consts, m._batch, S,
+                                  warp_noise=wn.to(dev), data_noise={"expression": dn.to(dev)})
+        loss.backward()
+        out.append((loss.detach(), [p.grad for p in m.parameters()]))
+    (lc, gc), (lg, gg) = out
+    assert _rel(lg, lc) <= 1e-4
+    for g, c in zip(gg, gc):
+        assert _rel(g, c) <= 1e-3
+
+
+@pytest.mark.parametrize("mode", ["mixed", "kl_inverse"])
+def test_cuda_opt_in_fit_launches_every_kernel(cuda_device, mode):
+    """Per step: one Cholesky probe (m < 64), one fused factor slab, eight
+    substitutions (two cholesky_solves forward, their pullbacks backward),
+    the quad-diag forward and backward in each layer; no plain version."""
+    model = VariationalGPSA(_tiny_data(), m_X_per_view=16, m_G=16, fixed_view_idx=0,
+                            svgp_solve_mode=mode, device=cuda_device, **OPT_INS)
+    mods = (ch, ts, factor, quad)
+    ch.launches = ts.launches = factor.launches = quad.fwd_launches = quad.bwd_launches = 0
+    for mod in mods:
+        mod.plain_calls = 0
+    losses = model.fit(n_epochs=5, S=2)
+    assert np.isfinite(losses).all()
+    assert (ch.launches, factor.launches, ts.launches) == (5, 5, 8 * 5)
+    assert (quad.fwd_launches, quad.bwd_launches) == (2 * 5, 2 * 5)
+    assert all(mod.plain_calls == 0 for mod in mods)

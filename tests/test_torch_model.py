@@ -276,8 +276,6 @@ def test_jax_checkpoint_round_trip(tmp_path):
         {"triangular_variational": True},
         {"whitened_variational": True},
         {"data_chunk_size": 16},
-        {"quad_diag_impl": "pallas"},
-        {"fused_factor_inverse": "fused"},
     ],
     ids=lambda kw: next(iter(kw)),
 )
