@@ -5,23 +5,34 @@
 
 Drives ``spatial_alignment_tpu_torch`` (never the JAX package) through the
 entry points a user calls, builds every CUDA kernel from the sources in the
-checkout, and holds each kernel against its plain PyTorch version. Two
-paths are driven: the default ``fit()`` (Cholesky kernel only) and the
-model built with the three kernel opt-ins ``cholesky_impl="pallas"``,
+checkout, and holds each kernel against its plain PyTorch version. Three
+paths are driven: the default ``fit()`` (Cholesky kernel only); the model
+built with the three kernel opt-ins ``cholesky_impl="pallas"``,
 ``quad_diag_impl="pallas"`` and ``fused_factor_inverse="fused"``
 (Cholesky probe, fused factor, triangular solve, quad-diag forward and
-backward). Phases, one JSON line each:
+backward); and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
+``data_chunk_size``) and its ``predict()``, on the default route and under
+``set_gram_force(True)`` (cross-Gram kernel). Phases, one JSON line each:
 
   device     nvidia-smi name and power limit, torch / CUDA versions, TF32 flags
   build      nvcc wall time, ptxas register / shared-memory report
   parity     tiny model, and an m = 64 model with the opt-ins: loss and
              gradients on the card vs the CPU path
-  kernels    cholesky at every main-path shape, and at m = 256 (global-memory
-             variant): error vs the plain version, reconstruction residual,
-             NaN contract, autograd vs the plain path, median times; then
+  model_mb100k  construction of the 100k-spot model (host k-means included)
+  mb100k_first_loss_draws  the 100k model's minibatch loss before training
+             on three other draws: default route, forced Gram kernel, and
+             float64 on the CPU
+  kernels    cholesky at every main-path shape (the m = 200 fit's and the
+             100k fit's m = 100 slabs, captured from one loss of each), and
+             at m = 256 (global-memory variant): error vs the plain version
+             on random and on the real inputs, reconstruction residual, NaN
+             lanes and contract, autograd vs the plain path, median times; then
              trisolve, quad_fwd, quad_bwd and factor at every shape the
              opt-in fits give them (captured from one loss and gradient of
-             each), on random well-conditioned input and on the real inputs
+             each), on random well-conditioned input and on the real inputs;
+             then gram at every shape the forced 100k fits and predict() give
+             it, for the three kernel kinds, against its plain version and
+             the expansion form, with the bfloat16 store
   fit_m200   the full-width slice: m = 200, N = 4,050, 10-latent LMC, 200 steps
   fit_m50    the m = 50 two-view grid, no LMC, 300 steps
   fit_m200_pallas  the same model and data as fit_m200 with the opt-ins,
@@ -29,9 +40,21 @@ backward). Phases, one JSON line each:
              call, first loss beside fit_m200's, peak memory
   fit_m50_pallas   the m = 50 grid with the opt-ins, 100 steps (kl_inverse)
   predict    predict() and forward(S=5) on the m = 200 models
+  fit_mb100k  the 100k-spot configuration of bench.py (two views of 50,000,
+             10 genes, m = 100, LMC 10, data_chunk_size 8192) by minibatch
+             SVI, B = 4096 a view, four fit() calls of 250 steps: 2 Cholesky,
+             0 Gram launches a step
+  fit_mb100k_gram  the same model under set_gram_force(True), 4 x 250
+             steps: 2 Gram and 2 Cholesky launches a step; first loss beside
+             fit_mb100k's
+  fit_mb100k_gram_chunked  the same with data_chunk_size 2048, 100 steps: 5
+             Gram launches a step; first loss and peak memory beside the above
+  predict_mb100k  predict() over all 100,000 spots of the forced model: 1 + 16
+             Gram launches (16 data-layer chunks), finite (100000, .) outputs,
+             aligned error below the data's
   profile    (with --profile DIR) device time per step by kernel over 10
-             steps of each m = 200 fit, the device's idle share, and the
-             chrome traces in DIR
+             steps of each m = 200 fit and of the two unchunked 100k fits,
+             the device's idle share, and the chrome traces in DIR
   ab_fit_m200  (with --profile DIR) steps/s of the two m = 200 fits in
              turns, default and opt-in, A B B A twice
 
@@ -44,6 +67,7 @@ exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -61,11 +85,13 @@ REPLACES = {
     "quad_fwd": "spatial_alignment_tpu/ops/pallas_quad.py:253",
     "quad_bwd": "spatial_alignment_tpu/ops/pallas_quad.py:284",
     "factor": "spatial_alignment_tpu/ops/pallas_factor.py:197",
+    "gram": "spatial_alignment_tpu/ops/pallas_gram.py:117",
 }
 SOURCES = {
     "cholesky": "cholesky", "trisolve": "trisolve", "quad_fwd": "quad", "quad_bwd": "quad",
-    "factor": "factor",
+    "factor": "factor", "gram": "gram",
 }
+GRAM_KINDS = ("rbf", "matern12", "matern32")
 
 # Published peaks (dense, no sparsity) used for the bound: memory rate and
 # float32 rate outside the tensor cores, by part.
@@ -92,21 +118,44 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, n: int = 60, warmup: int = 5) -> float:
-    """Median over ``n`` CUDA-event-timed calls of ``fn``."""
+_CYCLES_PER_MS = []
+
+
+def median_ms(fn, n: int = 20, reps: int = 5, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the median over ``reps`` batches of
+    ``n`` calls of the batch's CUDA-event time over ``n``. Each batch is
+    queued behind a device-side sleep longer than the host takes to issue
+    it, so the device runs the calls back to back: events around a single
+    call would count the host's time to issue it whenever that is the
+    longer of the two, as it is for a kernel of a few microseconds."""
     import torch
 
+    if not _CYCLES_PER_MS:
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        torch.cuda._sleep(10**7)
+        e.record()
+        torch.cuda.synchronize()
+        _CYCLES_PER_MS.append(10**7 / s.elapsed_time(e))
     for _ in range(warmup):
         fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    for s, e in zip(starts, ends):
-        s.record()
-        fn()
-        e.record()
     torch.cuda.synchronize()
-    times = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
-    return times[len(times) // 2]
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int((2 * issue_ms + 1.0) * _CYCLES_PER_MS[0]))
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e) / n)
+    return sorted(times)[reps // 2]
 
 
 def spd(gen, B, m, device):
@@ -147,11 +196,10 @@ def aligned_error(coords, view_idx) -> float:
     return float(np.mean(np.sum((coords[view_idx[0]] - coords[view_idx[1]]) ** 2, axis=1)))
 
 
-def capture_cholesky_inputs(model):
-    """The inputs the main path hands the Cholesky in one loss evaluation
+def capture_cholesky_inputs(loss):
+    """The inputs a path hands the Cholesky in one evaluation of ``loss()``
     (probe slab, then final slab), captured without changing the path."""
     import torch
-    from spatial_alignment_tpu_torch.models import core
     from spatial_alignment_tpu_torch.ops import linalg
 
     captured, orig = [], linalg.cholesky
@@ -163,32 +211,41 @@ def capture_cholesky_inputs(model):
     linalg.cholesky = spy
     try:
         with torch.no_grad():
-            core.negative_elbo(model.spec, model.params, model.consts, model._batch, 5,
-                               generator=model._gen)
+            loss()
     finally:
         linalg.cholesky = orig
     return captured
 
 
-def kernel_modules():
-    from spatial_alignment_tpu_torch.ops import cholesky, factor, quad, trisolve
+def full_loss(model):
+    """One full-batch loss of ``model``, drawn from the model's generator, as
+    one training step does."""
+    from spatial_alignment_tpu_torch.models import core
 
-    return cholesky, trisolve, quad, factor
+    return core.negative_elbo(model.spec, model.params, model.consts, model._batch, 5,
+                              generator=model._gen)
+
+
+def kernel_modules():
+    from spatial_alignment_tpu_torch.ops import cholesky, factor, gram, quad, trisolve
+
+    return cholesky, trisolve, quad, factor, gram
 
 
 def reset_counts():
-    ch, ts, qd, fc = kernel_modules()
+    ch, ts, qd, fc, gm = kernel_modules()
     ch.launches = ts.launches = qd.fwd_launches = qd.bwd_launches = fc.launches = 0
-    ch.plain_calls = ts.plain_calls = qd.plain_calls = fc.plain_calls = 0
+    gm.launches = 0
+    ch.plain_calls = ts.plain_calls = qd.plain_calls = fc.plain_calls = gm.plain_calls = 0
 
 
 def read_counts():
     """({kernel: launches}, {module: plain calls}) since the last reset."""
-    ch, ts, qd, fc = kernel_modules()
+    ch, ts, qd, fc, gm = kernel_modules()
     launches = {"cholesky": ch.launches, "trisolve": ts.launches, "quad_fwd": qd.fwd_launches,
-                "quad_bwd": qd.bwd_launches, "factor": fc.launches}
+                "quad_bwd": qd.bwd_launches, "factor": fc.launches, "gram": gm.launches}
     plain = {"cholesky": ch.plain_calls, "trisolve": ts.plain_calls, "quad": qd.plain_calls,
-             "factor": fc.plain_calls}
+             "factor": fc.plain_calls, "gram": gm.plain_calls}
     return launches, plain
 
 
@@ -200,7 +257,7 @@ def capture_kernel_inputs(model):
     import torch
     from spatial_alignment_tpu_torch.models import core
 
-    _, ts, qd, fc = kernel_modules()
+    _, ts, qd, fc, _ = kernel_modules()
     seen = {}
 
     def spy(mod, name, key):
@@ -230,6 +287,211 @@ def capture_kernel_inputs(model):
     for p in model.parameters():
         p.grad = None
     return list(seen.values())
+
+
+def minibatch_100k_data():
+    """The 100k-spot two-view configuration of bench.py:124-140 (50,000 spots
+    a view, 10 genes, an analytic smooth warp), copied so that this script
+    imports nothing of the JAX package or its benchmark."""
+    import numpy as np
+
+    n = 50_000
+    rng = np.random.default_rng(0)
+    X1 = rng.uniform(0, 10, (n, 2)).astype(np.float32)
+    warp = 0.4 * np.stack(
+        [np.sin(X1[:, 0] / 2.0 + 1.0), np.cos(X1[:, 1] / 2.0)], 1
+    ).astype(np.float32)
+    X = np.concatenate([X1, X1 + warp])
+    Y1 = np.stack(
+        [np.sin(X1[:, 0] * (j % 3 + 1) / 3.0) + np.cos(X1[:, 1] * (j % 2 + 1) / 2.0)
+         for j in range(10)], 1,
+    ).astype(np.float32)
+    Y = np.concatenate([Y1, Y1])
+    return X, Y, [n, n]
+
+
+def twin(model, **spec_changes):
+    """A second model with ``model``'s data, initial parameters and seed (0),
+    its spec changed by ``spec_changes``: what the constructor would give
+    for the same arguments, without running its host k-means over 100,000
+    points again. ``model`` must not have drawn from its generator yet."""
+    import copy
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        return tree.detach().clone()
+
+    other = copy.copy(model)
+    other.spec = model.spec.replace(**spec_changes)
+    other._set_state(clone(model.params), model.consts, model._batch, 0)
+    return other
+
+
+def capture_gram_inputs(*fns):
+    """The inputs the calls ``fns`` hand the Gram kernel, one entry per
+    distinct (x1 shape, x2 shape, per-group parameters), captured without
+    changing the path."""
+    import torch
+
+    gm = kernel_modules()[4]
+    seen, orig = {}, gm.gram_kernel
+
+    def spy(x1, x2, log_ls, log_var, *args, **kw):
+        sig = (tuple(x1.shape), tuple(x2.shape), log_ls.numel() > 1)
+        if sig not in seen:
+            seen[sig] = [t.detach().clone() for t in (x1, x2, log_ls, log_var)]
+        return orig(x1, x2, log_ls, log_var, *args, **kw)
+
+    gm.gram_kernel = spy
+    try:
+        for fn in fns:
+            fn()
+    finally:
+        gm.gram_kernel = orig
+    return list(seen.values())
+
+
+@contextlib.contextmanager
+def forced_gram():
+    """Context: every gram without an explicit ``force`` takes the kernel,
+    and the switch is back to its default afterwards, whatever happens."""
+    gm = kernel_modules()[4]
+    gm.set_gram_force(True)
+    try:
+        yield
+    finally:
+        gm.set_gram_force(None)
+
+
+def minibatch_loss(model, B, S=5, seed=123):
+    """One minibatch loss of ``model``, its indices and noise drawn from a
+    generator of its own seeded with ``seed`` (the model's stays untouched)."""
+    import torch
+    from spatial_alignment_tpu_torch.models import core
+
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    return core.negative_elbo_minibatch(
+        model.spec, core.minibatch_spec(model.spec, B), model.params, model.consts,
+        model._batch, S, generator=gen,
+    )
+
+
+def minibatch_loss_and_grad(model, B, S=5):
+    """One minibatch loss and gradient of ``model``, as ``minibatch_loss``."""
+    minibatch_loss(model, B, S).backward()
+    for p in model.parameters():
+        p.grad = None
+
+
+def first_loss_draws(model, B, seeds=(1, 2, 3), S=5):
+    """The minibatch loss of ``model`` at its current parameters from one
+    index and noise draw per seed, three ways: float32 on the card by the
+    default route and under the forced Gram kernel, and float64 on the CPU
+    by the default route (the same draws, cast). How far the two float32
+    routes part from each other and from float64 on other draws than the
+    fits' first step."""
+    import torch
+    from spatial_alignment_tpu_torch.models import core
+
+    spec, sub_spec, dev = model.spec, core.minibatch_spec(model.spec, B), model.device
+
+    def cpu64(tree):
+        if isinstance(tree, dict):
+            return {k: cpu64(v) for k, v in tree.items()}
+        return tree.detach().cpu().double() if tree.is_floating_point() else tree.cpu()
+
+    args64 = (cpu64(model.params), cpu64(model.consts), cpu64(model._batch))
+    out = []
+    for seed in seeds:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        idx = {m.name: torch.stack([torch.randint(n_v, (B,), generator=gen, device=dev)
+                                    for n_v in m.n_samples]) for m in spec.modalities}
+        wn = torch.randn((S, spec.n_views, B * spec.n_modalities, spec.n_spatial_dims),
+                         generator=gen, device=dev)
+        dn = {m.name: torch.randn((S, spec.n_views * B, m.n_latent), generator=gen, device=dev)
+              for m in spec.modalities}
+        draws = dict(indices=idx, warp_noise=wn, data_noise=dn)
+        loss = lambda p, c, b, **d: float(core.negative_elbo_minibatch(
+            spec, sub_spec, p, c, b, S, **d))
+        with torch.no_grad():
+            default = loss(model.params, model.consts, model._batch, **draws)
+            with forced_gram():
+                forced = loss(model.params, model.consts, model._batch, **draws)
+            f64 = loss(*args64, **cpu64(draws))
+        out.append({"seed": seed, "default": default, "forced": forced, "float64": f64,
+                    "rel": abs(forced - default) / abs(default),
+                    "default_rel_vs_float64": abs(default - f64) / abs(f64),
+                    "forced_rel_vs_float64": abs(forced - f64) / abs(f64)})
+    return out
+
+
+def phase_gram(device, captured, peaks):
+    """The Gram kernel at every shape the forced fits and predict() gave it:
+    on those real inputs (rbf, the model's kernel), and on random input of
+    the same shapes for rbf, matern12 and matern32, against its plain
+    version (rel 1e-5: the same float32 operations in the same order, only
+    exp / sqrt differ), against the same arithmetic in float64 (rel 1e-6)
+    and against the expansion form. That form's |x|^2 + |z|^2 - 2 x.z
+    cancels: with |x|^2 <= 200 its squared distance is off by up to about
+    6 * 2^-24 * 400 = 1.4e-4, which moves K / var by up to 1.4e-4 / (2 l^2)
+    for rbf and 3 * 1.4e-4 / (2 l^2) for matern32 (l >= e^-0.5: 2e-4 and
+    6e-4; held at 1e-3), and by sqrt(1.4e-4) / (2 l) = 1e-2 for matern12,
+    whose distance is the square root of the cancelled sum (held at 1e-2).
+    Then the bfloat16 store once (rel 2^-8, its spacing); median times of
+    kernel, plain version and expansion form beside the bound."""
+    import torch
+
+    gm = kernel_modules()[4]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    rows, bf16 = [], None
+    for x1r, x2r, lsr, varr in captured:
+        Kk, Kp = gm.gram_kernel(x1r, x2r, lsr, varr, "rbf"), gm.gram_plain(x1r, x2r, lsr, varr)
+        torch.cuda.synchronize()
+        real_rel = rel_err(Kk, Kp)
+        check(bool(torch.isfinite(Kk).all()), f"gram real {tuple(x2r.shape)}: non-finite")
+        check(real_rel <= 1e-5, f"gram real {tuple(x2r.shape)}: rel vs plain {real_rel}")
+        real = {"rel_vs_plain": real_rel, "max_abs_err": float((Kk - Kp).abs().max())}
+        x1 = 10 * torch.rand(x1r.shape, generator=gen, device=device)
+        x2 = 10 * torch.rand(x2r.shape, generator=gen, device=device)
+        ls = 1.5 * torch.rand(lsr.shape, generator=gen, device=device) - 0.5
+        var = torch.rand(varr.shape, generator=gen, device=device) - 0.5
+        n_out = Kk.numel()
+        b, by = bound_ms(4 * (x1.numel() + x2.numel() + ls.numel() + var.numel() + n_out),
+                         n_out * (3 * x1.shape[-1] + 6), peaks)
+        for kind in GRAM_KINDS:
+            Kk = gm.gram_kernel(x1, x2, ls, var, kind)
+            Kp = gm.gram_plain(x1, x2, ls, var, kind)
+            Ke = gm.gram(x1, x2, ls, var, kind, force=False)
+            K64 = gm.gram_plain(x1.double(), x2.double(), ls.double(), var.double(), kind)
+            torch.cuda.synchronize()
+            rel_p, rel_e, rel_64 = rel_err(Kk, Kp), rel_err(Kk, Ke), rel_err(Kk, K64)
+            tol_e = 1e-2 if kind == "matern12" else 1e-3
+            check(rel_p <= 1e-5, f"gram {kind} {tuple(x2.shape)}: rel vs plain {rel_p}")
+            check(rel_64 <= 1e-6, f"gram {kind} {tuple(x2.shape)}: rel vs float64 {rel_64}")
+            check(rel_e <= tol_e, f"gram {kind} {tuple(x2.shape)}: rel vs expansion {rel_e}")
+            if bf16 is None:
+                Kb = gm.gram_kernel(x1, x2, ls, var, kind, out_dtype=torch.bfloat16)
+                Kbp = gm.gram_plain(x1, x2, ls, var, kind, out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                bf16 = {"x2": list(x2.shape), "kind": kind,
+                        "rel_vs_plain": rel_err(Kb.float(), Kbp.float())}
+                check(Kb.dtype == torch.bfloat16 and bf16["rel_vs_plain"] <= 2.0**-8,
+                      f"gram bfloat16 store: {bf16}")
+            rows.append({
+                "x1": list(x1.shape), "x2": list(x2.shape), "per_group_params": ls.numel() > 1,
+                "kind": kind, "rel_vs_plain": rel_p, "rel_vs_float64": rel_64,
+                "rel_vs_expansion": rel_e, "expansion_rel_vs_float64": rel_err(Ke, K64),
+                "max_abs_err": float((Kk - Kp).abs().max()),
+                "real": real if kind == "rbf" else None,
+                "kernel_ms": median_ms(lambda: gm.gram_kernel(x1, x2, ls, var, kind)),
+                "plain_ms": median_ms(lambda: gm.gram_plain(x1, x2, ls, var, kind)),
+                "expansion_ms": median_ms(lambda: gm.gram(x1, x2, ls, var, kind, force=False)),
+                "library_ms": None, "bound_ms": b, "bound_by": by})
+    return {"gram": rows, "gram_bf16": bf16}
 
 
 def parity_data(n_per_view):
@@ -300,12 +562,16 @@ def phase_parity(device):
 
 
 def phase_kernels(device, real_inputs, peaks):
+    """The Cholesky kernel on random well-conditioned input at the fixed
+    shapes and at the shape of every real input, then on the real inputs
+    (the main paths' Grams with their jitter)."""
     import torch
     from spatial_alignment_tpu_torch.ops import cholesky as ch
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     shapes = [(2, 50, 50), (34, 50, 50), (2, 2, 200, 200), (14, 200, 200), (2, 256, 256)]
+    shapes += [tuple(A.shape) for A in real_inputs if tuple(A.shape) not in shapes]
     results = {}
     for shape in shapes:
         m = shape[-1]
@@ -335,8 +601,8 @@ def phase_kernels(device, real_inputs, peaks):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
 
-    # The real inputs of the m = 200 main path: near-singular kernel Grams
-    # with their probe and final jitter.
+    # The real inputs of the m = 200 and the 100k (m = 100) main paths:
+    # near-singular kernel Grams with their probe and final jitter.
     real = []
     for A in real_inputs:
         Lk, Lp = ch.cholesky_kernel(A), ch.cholesky_plain(A)
@@ -609,10 +875,14 @@ def phase_new_kernels(device, captured, peaks):
         check(bool((torch.triu(Ik[1:], 1) == 0).all()), f"tri_inverse {shape}: not lower")
         L = L[1:].expand(shape)
         m = shape[-1]
+        eye = torch.eye(m, device=device).expand(shape)
         b, by = bound_ms(4 * shape[0] * (m * (m + 1) / 2 + m * m), shape[0] * m**3 / 3, peaks)
         inverse.append({"shape": list(shape), "rel_vs_plain": rel,
                         "kernel_ms": median_ms(lambda: ts.tri_inverse_kernel(L)),
                         "plain_ms": median_ms(lambda: ts.tri_inverse_plain(L)),
+                        "library_ms": median_ms(lambda: torch.linalg.solve_triangular(
+                            L, eye, upper=False)),
+                        "library": "torch.linalg.solve_triangular(L, I, upper=False)",
                         "bound_ms": b, "bound_by": by})
 
     # NaN pivot in a solve with several lanes, and a failed lane in the
@@ -670,13 +940,33 @@ def phase_new_kernels(device, captured, peaks):
 # (warp and data layers: two substitutions each) forward and their four
 # pullback substitutions backward, the quad-diag forward and backward in
 # each layer. No path calls a plain version on the card.
-DEFAULT_PER_STEP = {"cholesky": 2, "trisolve": 0, "quad_fwd": 0, "quad_bwd": 0, "factor": 0}
-OPTIN_PER_STEP = {"cholesky": 1, "trisolve": 8, "quad_fwd": 2, "quad_bwd": 2, "factor": 1}
+DEFAULT_PER_STEP = {"cholesky": 2, "trisolve": 0, "quad_fwd": 0, "quad_bwd": 0, "factor": 0,
+                    "gram": 0}
+OPTIN_PER_STEP = {"cholesky": 1, "trisolve": 8, "quad_fwd": 2, "quad_bwd": 2, "factor": 1,
+                  "gram": 0}
+# The 100k-spot minibatch fit under set_gram_force(True): the warp layer's
+# Gram and the data layer's, one per chunk of the 2 x 4096 sub-batch points
+# (data_chunk_size 8192 leaves them whole, 2048 cuts them in four).
+MB_GRAM_PER_STEP = {**DEFAULT_PER_STEP, "gram": 2}
+MB_GRAM_CHUNKED_PER_STEP = {**DEFAULT_PER_STEP, "gram": 5}
+MB100K = dict(m_X_per_view=100, m_G=100, n_latent_gps={"expression": 10}, fixed_view_idx=0,
+              mean_function="identity_fixed", data_chunk_size=8192)
+MB_B = 4096
+# The two unchunked 100k fits: 1000 steps in four fit() calls of 250. Each
+# call starts Adam afresh, as the JAX package's fit does. On the card one
+# call of 1000 steps left the aligned error at 0.19 (data: 0.17), while
+# calls of 250 steps brought it to 0.004 after 500 steps and about 1e-4
+# from 750 on. The JAX package stalls the same way under one Adam state:
+# experiments/out/extreme_scale_mb4096.json, this configuration trained by
+# one train loop for 8,400 steps, ends at an aligned error of 0.23.
+MB_STEPS, MB_CALLS = 1000, 4
 
 
-def phase_fit(name, model, n_epochs, S, expect_mode, per_step):
-    """Fit ``n_epochs`` steps with every count set to 0 just before and read
-    just after; the counts must be exactly ``per_step`` times the steps."""
+def phase_fit(name, model, n_epochs, S, expect_mode, per_step, minibatch_size=None,
+              calls=1):
+    """Fit ``n_epochs`` steps, in ``calls`` fit() calls of equal length, with
+    every count set to 0 just before and read just after; the counts must be
+    exactly ``per_step`` times the steps."""
     import numpy as np
     import torch
 
@@ -686,7 +976,9 @@ def phase_fit(name, model, n_epochs, S, expect_mode, per_step):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    losses = model.fit(n_epochs=n_epochs, lr=1e-2, S=S)
+    losses = np.concatenate([
+        model.fit(n_epochs=n_epochs // calls, lr=1e-2, S=S, minibatch_size=minibatch_size)
+        for _ in range(calls)])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches, plain = read_counts()
@@ -698,14 +990,18 @@ def phase_fit(name, model, n_epochs, S, expect_mode, per_step):
               f"{name}: {launches[kernel]} {kernel} launches for {n_epochs} steps, "
               f"expected {k} per step")
     check(not any(plain.values()), f"{name}: plain versions called on the card: {plain}")
+    peak = torch.cuda.max_memory_allocated()
     emit(name, steps=n_epochs, seconds=dt, steps_per_s=n_epochs / dt,
          launches=launches, launches_per_step={k: v / n_epochs for k, v in launches.items()},
          plain_calls=plain, solve_mode=model.spec.svgp_solve_mode, loss_first=float(losses[0]),
-         loss_first50=first, loss_last50=last, peak_mem_bytes=torch.cuda.max_memory_allocated())
-    return {"launches": launches, "losses": losses}
+         loss_first50=first, loss_last50=last, peak_mem_bytes=peak,
+         minibatch_size=minibatch_size, data_chunk_size=model.spec.data_chunk_size,
+         fit_calls=calls)
+    return {"launches": launches, "losses": losses, "peak_mem_bytes": peak}
 
 
-def phase_profile(name, model, out_dir: Path, steps: int = 10, S: int = 5, top: int = 15):
+def phase_profile(name, model, out_dir: Path, steps: int = 10, S: int = 5, top: int = 15,
+                  minibatch_size=None):
     """Device time of ``steps`` training steps by kernel name, from
     torch.profiler, beside the step time of ``2 * steps`` unprofiled steps
     just before it on the same model (the host's pace drifts over a run, so
@@ -714,14 +1010,15 @@ def phase_profile(name, model, out_dir: Path, steps: int = 10, S: int = 5, top: 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model.fit(n_epochs=2, lr=1e-2, S=S)  # warm the allocator outside the window
+    fit = lambda n: model.fit(n_epochs=n, lr=1e-2, S=S, minibatch_size=minibatch_size)
+    fit(2)  # warm the allocator outside the window
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.fit(n_epochs=2 * steps, lr=1e-2, S=S)
+    fit(2 * steps)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / (2 * steps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.fit(n_epochs=steps, lr=1e-2, S=S)
+        fit(steps)
         torch.cuda.synchronize()
     # Device-side events only (kernels, copies, fills): a CPU op's row
     # repeats the device time of the kernels it launched, and a device-side
@@ -732,9 +1029,9 @@ def phase_profile(name, model, out_dir: Path, steps: int = 10, S: int = 5, top: 
     busy_us = sum(r[1] for r in rows)
     check(busy_us > 0, "profiler recorded no device time")
     # The port's kernels by their names in csrc/ (cholesky_*_kernel,
-    # trisolve_kernel, quad_*_kernel, factor_*_kernel).
+    # trisolve_kernel, quad_*_kernel, factor_*_kernel, gram_kernel).
     ours = {k: sum(r[1] for r in rows if k in r[0] and "_kernel" in r[0]) / busy_us
-            for k in ("cholesky_", "trisolve_", "quad_", "factor_")}
+            for k in ("cholesky_", "trisolve_", "quad_", "factor_", "gram_")}
     out_dir.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out_dir / f"{name}_trace.json"))
     emit("profile", fit=name, steps=steps, step_ms=step_s * 1e3,
@@ -768,9 +1065,10 @@ def phase_ab(models, steps: int = 100, rounds: int = 2, S: int = 5):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", type=Path,
-                        help="also profile 10 steps of each m = 200 fit (device time by "
-                             "kernel), write the chrome traces into DIR, and time the two "
-                             "fits in turns (A B B A)")
+                        help="also profile 10 steps of each m = 200 fit and of the two "
+                             "unchunked 100k fits (device time by kernel), write the chrome "
+                             "traces into DIR, and time the two m = 200 fits in turns "
+                             "(A B B A)")
     args = parser.parse_args()
     try:
         import torch
@@ -805,14 +1103,52 @@ def main() -> int:
 
     phase_parity(device)
 
+    # The 100k-spot model, built once through the constructor; its forced
+    # and chunked twins start from the same parameters and generator state.
+    import numpy as np
+    from spatial_alignment_tpu_torch.models import params as params_mod
+
+    Xm, Ym, nslm = minibatch_100k_data()
+    ddm = {"expression": {"spatial_coords": Xm, "outputs": Ym, "n_samples_list": nslm}}
+    vim = [np.arange(nslm[0]), np.arange(nslm[0], sum(nslm))]
+    kmeans_s, kmeans = [], params_mod.kmeans_centers
+
+    def timed_kmeans(*a, **kw):
+        t = time.perf_counter()
+        out = kmeans(*a, **kw)
+        kmeans_s.append(time.perf_counter() - t)
+        return out
+
+    params_mod.kmeans_centers = timed_kmeans
+    try:
+        t0 = time.perf_counter()
+        model_mb = VariationalGPSA(ddm, **MB100K, device=device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        params_mod.kmeans_centers = kmeans
+    model_mb_g = twin(model_mb)
+    model_mb_gc = twin(model_mb, data_chunk_size=2048)
+    emit("model_mb100k", seconds=build_s, kmeans_seconds=kmeans_s, n_spots=sum(nslm),
+         solve_mode=model_mb.spec.svgp_solve_mode, spec_data_chunk_size=[
+             m.spec.data_chunk_size for m in (model_mb, model_mb_g, model_mb_gc)])
+
     dd200, X200, vi200 = two_view_data(45, 10)
     kw200 = dict(m_X_per_view=200, m_G=200, n_latent_gps={"expression": 10}, fixed_view_idx=0,
                  mean_function="identity_fixed", device=device)
     model = VariationalGPSA(dd200, **kw200)
-    real_inputs = capture_cholesky_inputs(model)
-    check([tuple(a.shape) for a in real_inputs] == [(2, 2, 200, 200), (14, 200, 200)],
-          f"main-path cholesky shapes {[tuple(a.shape) for a in real_inputs]}")
+    # The Cholesky's inputs on both main paths: one loss of the m = 200 model
+    # from its generator (as its first step, and as its opt-in twin's capture
+    # below), and one minibatch loss of the 100k model from a generator of
+    # its own (its twins keep the same generator state).
+    real_inputs = capture_cholesky_inputs(lambda: full_loss(model))
+    real_inputs += capture_cholesky_inputs(lambda: minibatch_loss(model_mb, MB_B))
+    want = [(2, 2, 200, 200), (14, 200, 200), (2, 2, 100, 100), (14, 100, 100)]
+    check([tuple(a.shape) for a in real_inputs] == want,
+          f"main-path cholesky shapes {[tuple(a.shape) for a in real_inputs]}, expected {want}")
     chol_record, results, real = phase_kernels(device, real_inputs, peaks)
+    draws = first_loss_draws(model_mb, MB_B)
+    emit("mb100k_first_loss_draws", draws=draws, max_rel=max(d["rel"] for d in draws))
 
     # The opt-in models: the same data and seed as the default ones. Their
     # kernels' inputs come from one loss and gradient of each, drawn from
@@ -825,7 +1161,23 @@ def main() -> int:
     model50_p = VariationalGPSA(dd50, **kw50, **OPT_INS)
     captured = capture_kernel_inputs(model_p) + capture_kernel_inputs(model50_p)
     new_record = phase_new_kernels(device, captured, peaks)
-    emit("kernels", cholesky=chol_record, **new_record)
+    # The Gram kernel's inputs: one minibatch loss and gradient of each
+    # forced 100k model (indices and noise from a generator of their own)
+    # and predict() over all 100,000 spots before training.
+    pre_mb = []
+    with forced_gram():
+        gram_captured = capture_gram_inputs(
+            lambda: minibatch_loss_and_grad(model_mb_g, MB_B),
+            lambda: minibatch_loss_and_grad(model_mb_gc, MB_B),
+            lambda: pre_mb.append(model_mb_g.predict({"expression": Xm})[0]["expression"]),
+        )
+    shapes = sorted((tuple(c[0].shape), tuple(c[1].shape)) for c in gram_captured)
+    want = sorted([((1, 100, 2), (1, MB_B, 2)), ((100, 2), (5, 2 * MB_B, 2)),
+                   ((100, 2), (5, 2048, 2)), ((1, 100, 2), (1, nslm[0], 2)),
+                   ((100, 2), (1, sum(nslm) // 16, 2))])
+    check(shapes == want, f"gram shapes on the 100k path {shapes}, expected {want}")
+    gram_record = phase_gram(device, gram_captured, peaks)
+    emit("kernels", cholesky=chol_record, **new_record, **gram_record)
 
     G_pre, _, _ = model.predict({"expression": X200})
     fit200 = phase_fit("fit_m200", model, 200, 5, "mixed", DEFAULT_PER_STEP)
@@ -838,8 +1190,6 @@ def main() -> int:
     check(first_rel <= 1e-3, f"fit_m200_pallas: first loss rel {first_rel} vs fit_m200")
     emit("fit_m200_pallas_vs_fit_m200", first_loss_rel=first_rel)
     phase_fit("fit_m50_pallas", model50_p, 100, 5, "kl_inverse", OPTIN_PER_STEP)
-
-    import numpy as np
 
     G_post, F_mean, F_var = model.predict({"expression": X200})
     fwd = model.forward({"expression": X200}, S=5)
@@ -856,10 +1206,58 @@ def main() -> int:
          aligned_error_init=aligned_error(G_pre["expression"], vi200),
          aligned_error_fit=aligned_error(G_post["expression"], vi200),
          aligned_error_fit_pallas=aligned_error(G_post_p["expression"], vi200))
+
+    # The 100k-spot minibatch fits, default route and forced Gram kernel.
+    fit_mb = phase_fit("fit_mb100k", model_mb, MB_STEPS, 5, "mixed", DEFAULT_PER_STEP, MB_B,
+                       MB_CALLS)
+    with forced_gram():
+        fit_mb_g = phase_fit("fit_mb100k_gram", model_mb_g, MB_STEPS, 5, "mixed",
+                             MB_GRAM_PER_STEP, MB_B, MB_CALLS)
+        fit_mb_gc = phase_fit("fit_mb100k_gram_chunked", model_mb_gc, 100, 5, "mixed",
+                              MB_GRAM_CHUNKED_PER_STEP, MB_B)
+    # The same indices and noise on each pair: the forced Gram against the
+    # expansion form through a near-singular m = 100 factor (1e-3); chunked
+    # against whole, the same numbers in another summation order (1e-5).
+    loss0_rel = lambda a, b: abs(a["losses"][0] - b["losses"][0]) / abs(b["losses"][0])
+    rel_g, rel_gc = loss0_rel(fit_mb_g, fit_mb), loss0_rel(fit_mb_gc, fit_mb_g)
+    check(rel_g <= 1e-3, f"fit_mb100k_gram: first loss rel {rel_g} vs fit_mb100k")
+    check(rel_gc <= 1e-5, f"fit_mb100k_gram_chunked: first loss rel {rel_gc} vs fit_mb100k_gram")
+    emit("fit_mb100k_compare", first_loss_rel_gram_vs_default=rel_g,
+         first_loss_rel_chunked_vs_whole=rel_gc,
+         peak_mem_bytes={"whole_8192": fit_mb_g["peak_mem_bytes"],
+                         "chunked_2048": fit_mb_gc["peak_mem_bytes"],
+                         "default_route": fit_mb["peak_mem_bytes"]})
+
+    with forced_gram():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        G_mb, F_mb, V_mb = (d["expression"] for d in model_mb_g.predict({"expression": Xm}))
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        launches, plain = read_counts()
+    G_def = model_mb.predict({"expression": Xm})[0]["expression"]
+    n_mb = sum(nslm)
+    check(G_mb.shape == (n_mb, 2) and F_mb.shape == (n_mb, 10) and V_mb.shape == (n_mb, 10),
+          f"predict_mb100k: shapes {G_mb.shape}, {F_mb.shape}, {V_mb.shape}")
+    check(all(np.isfinite(a).all() for a in (G_mb, F_mb, V_mb, G_def)),
+          "predict_mb100k: non-finite output")
+    check(launches["gram"] == 1 + 16 and not any(plain.values()),
+          f"predict_mb100k: {launches['gram']} Gram launches (expected 1 + 16), plain {plain}")
+    err_data, err_fit = aligned_error(Xm, vim), aligned_error(G_mb, vim)
+    check(err_fit < err_data, f"predict_mb100k: aligned error {err_data} -> {err_fit}")
+    emit("predict_mb100k", seconds=pred_s, launches=launches, aligned_error_data=err_data,
+         aligned_error_init=aligned_error(pre_mb[0], vim), aligned_error_fit=err_fit,
+         aligned_error_fit_default_route=aligned_error(G_def, vim),
+         mse_F_mean=float(np.mean((F_mb - Ym) ** 2)))
+
     if args.profile is not None:
         phase_profile("fit_m200", model, args.profile)
         phase_profile("fit_m200_pallas", model_p, args.profile)
         phase_ab({"A": model, "B": model_p})
+        phase_profile("fit_mb100k", model_mb, args.profile, minibatch_size=MB_B)
+        with forced_gram():
+            phase_profile("fit_mb100k_gram", model_mb_g, args.profile, minibatch_size=MB_B)
 
     def entry(kernel, launches, row, max_abs_err, shape):
         return {"name": kernel, "route": "cuda",
@@ -870,13 +1268,15 @@ def main() -> int:
 
     # Each kernel at the largest shape of its m = 200 path: the data layer's
     # solve (L (200, 200), B (200, 10)) and quad-diag (x (5, 4050, 200),
-    # shared F (10, 200, 200)), the (14, 200, 200) factor slab. Launches are
+    # shared F (10, 200, 200)), the (14, 200, 200) factor slab; the Gram at
+    # the 100k fit's data layer (x1 (100, 2), x2 (5, 8192, 2)). Launches are
     # the counts of the path's 200-step fit: fit_m200 for the Cholesky,
-    # fit_m200_pallas for the others.
+    # fit_m200_pallas for the next four, fit_mb100k_gram for the Gram.
     solve = next(r for r in new_record["trisolve"] if r["B"] == [200, 10] and not r["trans"])
     qf = max(new_record["quad_fwd"], key=lambda r: math.prod(r["x"]))
     qb = max(new_record["quad_bwd"], key=lambda r: math.prod(r["x"]))
     fac = next(r for r in new_record["factor"] if r["shape"] == [14, 200, 200])
+    gr = next(r for r in gram_record["gram"] if r["x2"] == [5, 2 * MB_B, 2] and r["kind"] == "rbf")
     launches_p = fit200_p["launches"]
     main_shape = results[(14, 200, 200)]
     summary = {"kernels": [
@@ -889,6 +1289,8 @@ def main() -> int:
         entry("quad_bwd", launches_p["quad_bwd"], qb, qb["max_abs_err"],
               {"x": qb["x"], "F": qb["F"]}),
         entry("factor", launches_p["factor"], fac, fac["real"]["max_abs_err"], [14, 200, 200]),
+        entry("gram", fit_mb_g["launches"]["gram"], gr, gr["real"]["max_abs_err"],
+              {"x1": gr["x1"], "x2": gr["x2"], "kind": gr["kind"]}),
     ]}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)

@@ -1,30 +1,37 @@
 """GPSA core in PyTorch: factor pass, warp layer, data layer, ELBO.
 
 Counterpart of ``spatial_alignment_tpu/models/core.py`` on the default
-(square-parameterization, merged-factor, unchunked) path. The JAX package
-``vmap``s its per-view function; here the view axis is an explicit leading
-batch dim. Fixed (template) views are left out of the factor pass and the
-KL by static indexing, and their slots in the per-view outputs are filled
-out of place (``torch.stack``), so nothing saved for backward is written in
-place.
+(square-parameterization, merged-factor) path, with the data layer's
+point-axis chunking (``spec.data_chunk_size``) and minibatch SVI
+(``minibatch_spec``, ``subsample_batch``, ``negative_elbo_minibatch``).
+The JAX package ``vmap``s its per-view function; here the view axis is an
+explicit leading batch dim. Fixed (template) views are left out of the
+factor pass and the KL by static indexing, and their slots in the per-view
+outputs are filled out of place (``torch.stack``), so nothing saved for
+backward is written in place.
 
 Kernel opt-ins: ``spec.cholesky_impl``, ``spec.quad_diag_impl`` and
 ``spec.fused_factor_inverse`` reach every place the JAX package passes them
 (``svgp_mean_var``, ``_kuu_inverses``, ``compute_factors``, the KL); see
-:mod:`..ops.linalg` and :mod:`..ops.quad` for what each launches.
+:mod:`..ops.linalg` and :mod:`..ops.quad` for what each launches. The
+cross-Grams of the warp and data layers go through :func:`..ops.gram.gram`,
+which takes the Gram kernel under ``set_gram_force(True)``.
 
-Monte-Carlo noise: ``warp_layer``, ``data_layer``, ``forward`` and
-``negative_elbo`` take the standard-normal draws as optional tensors (the
-tests pass the JAX package's draws) and otherwise draw them from the given
+Monte-Carlo noise: ``warp_layer``, ``data_layer``, ``forward``,
+``negative_elbo`` and ``negative_elbo_minibatch`` take the standard-normal
+draws (and the last the subsample's indices) as optional tensors (the tests
+pass the JAX package's draws) and otherwise draw them from the given
 ``torch.Generator``. Everything is float32.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import quad
 from ..ops.gram import gram
@@ -395,16 +402,62 @@ def _data_factors(spec: ModelSpec, hp: dict, factors):
     return L_F, Om_by_mod, Linv_F
 
 
-def _data_moments(spec, hp, G_pts, L_F, Linv_F, delta, Om_tril):
-    """Latent SVGP mean (S, N, L) and variance (S, L, N) at points (S, N, D)."""
+def _pick_chunk(n: int, requested) -> Optional[int]:
+    """Largest divisor of n that is <= the requested chunk size (None = no
+    chunking, or when n already fits in one chunk)."""
+    if requested is None or n <= requested:
+        return None
+    nc = -(-n // requested)
+    while n % nc:
+        nc += 1
+    return n // nc
+
+
+def _data_moments(spec, hp, Kuf, L_F, Linv_F, delta, Om_tril):
+    """Latent SVGP mean and floored variance, both (S, n, L), from the
+    cross-Gram Kuf (S, m_G, n) at n points."""
     var = hp["data_kernel_variance"]
-    Kuf = gram(hp["Gtilde"], G_pts, hp["data_kernel_lengthscale"], var, spec.kernel_data)
-    kff = torch.exp(var) * torch.ones(G_pts.shape[:2], dtype=G_pts.dtype, device=G_pts.device)
-    return svgp_mean_var(
+    kff = torch.exp(var) * torch.ones(
+        Kuf.shape[:-2] + Kuf.shape[-1:], dtype=Kuf.dtype, device=Kuf.device
+    )
+    mu_t, sig = svgp_mean_var(
         kff, Kuf, L_F, 0.0, 0.0, delta, Om_tril, spec.diagonal_offset,
         solve_mode=spec.svgp_solve_mode, Kuu_inv=Linv_F,
         impl=spec.cholesky_impl, quad_impl=spec.quad_diag_impl,
     )
+    return mu_t, torch.clamp_min(sig.transpose(-1, -2), _VAR_FLOOR)
+
+
+def _over_points(spec: ModelSpec, hp: dict, G: torch.Tensor, per_chunk, *extra):
+    """``per_chunk(Kuf, *extra)`` over the point axis (dim 1) of G (S, N, D)
+    and of each ``extra`` (S, N, ...): whole, or in ``_pick_chunk`` pieces of
+    ``spec.data_chunk_size`` (JAX ``core.py:783-796,857-865``). Returns
+    ``per_chunk``'s tuple of (S, n, ...) tensors, joined along dim 1.
+
+    Peak memory is the point of chunking: each chunk's intermediates,
+    O(S L chunk m) through the variance's quadratic form, are recomputed in
+    the backward instead of saved for all N points. Each chunk's Gram is
+    made outside the recomputed region: its closed-form backward keeps it
+    anyway, and recomputing it would launch the Gram kernel a second time.
+    """
+    kern = lambda pts: gram(
+        hp["Gtilde"], pts, hp["data_kernel_lengthscale"], hp["data_kernel_variance"],
+        spec.kernel_data,
+    )
+    N = G.shape[1]
+    chunk = _pick_chunk(N, spec.data_chunk_size)
+    if chunk is None:
+        return per_chunk(kern(G), *extra)
+    outs = []
+    for lo in range(0, N, chunk):
+        Kuf = kern(G[:, lo : lo + chunk])
+        args = (Kuf,) + tuple(e[:, lo : lo + chunk] for e in extra)
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(per_chunk, *args, use_reentrant=False,
+                                   preserve_rng_state=False))
+        else:
+            outs.append(per_chunk(*args))
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
 def data_layer(
@@ -425,12 +478,18 @@ def data_layer(
         S, V, Np, D = G_samples[mod.name].shape
         N = V * Np
         G = G_samples[mod.name].reshape(S, N, D)
-        Om_tril = Om_by_mod[mod.name]
-        mu_t, sig = _data_moments(spec, hp, G, L_F, Linv_F, hp["delta_F"][mod.name], Om_tril)
+        Om_tril, delta = Om_by_mod[mod.name], hp["delta_F"][mod.name]
+        # The noise is drawn for all N points before any chunking, so chunked
+        # and unchunked runs see the same samples.
         eps_f = noise[mod.name] if noise is not None else torch.randn(
             (S, N, mod.n_latent), generator=generator, dtype=G.dtype, device=G.device
         )
-        lat = mu_t + torch.sqrt(torch.clamp_min(sig.transpose(-1, -2), _VAR_FLOOR)) * eps_f
+
+        def sample(Kuf, eps_pts, Om_tril=Om_tril, delta=delta):
+            mu_t, var_t = _data_moments(spec, hp, Kuf, L_F, Linv_F, delta, Om_tril)
+            return (mu_t + torch.sqrt(var_t) * eps_pts,)
+
+        (lat,) = _over_points(spec, hp, G, sample, eps_f)
         obs = lat @ hp["W"][mod.name] if mod.use_lmc else lat
         F_latent[mod.name] = lat.reshape(S, V, Np, mod.n_latent)
         F_obs[mod.name] = obs.reshape(S, V, Np, mod.n_outputs)
@@ -454,9 +513,13 @@ def data_layer_moments(
     for mod in spec.modalities:
         S, V, Np, D = G_samples[mod.name].shape
         G = G_samples[mod.name].reshape(S, V * Np, D)
-        Om_tril = Om_by_mod[mod.name]
-        mu_t, sig = _data_moments(spec, hp, G, L_F, Linv_F, hp["delta_F"][mod.name], Om_tril)
-        var_t = torch.clamp_min(sig.transpose(-1, -2), _VAR_FLOOR)
+        Om_tril, delta = Om_by_mod[mod.name], hp["delta_F"][mod.name]
+        mu_t, var_t = _over_points(
+            spec, hp, G,
+            lambda Kuf, Om_tril=Om_tril, delta=delta: _data_moments(
+                spec, hp, Kuf, L_F, Linv_F, delta, Om_tril
+            ),
+        )
         if mod.use_lmc:
             W = hp["W"][mod.name]
             mu_o, var_o = mu_t @ W, var_t @ torch.square(W)
@@ -626,6 +689,104 @@ def negative_elbo(
         )
         LL = LL + torch.sum(lp * mask[None, ..., None]) / S
     return -LL + KL
+
+
+# ---------------------------------------------------------------------------
+# Minibatch SVI
+# ---------------------------------------------------------------------------
+
+
+def minibatch_spec(spec: ModelSpec, batch_size: int) -> ModelSpec:
+    """The spec of a ``batch_size``-points-per-view minibatch: every
+    modality's point axis becomes exactly ``batch_size``."""
+    if batch_size < 1:
+        raise ValueError(f"minibatch size must be >= 1, got {batch_size}")
+    new_mods = tuple(
+        dataclasses.replace(
+            m, n_padded=int(batch_size), n_samples=(int(batch_size),) * spec.n_views
+        )
+        for m in spec.modalities
+    )
+    return spec.replace(modalities=new_mods)
+
+
+def importance_weights(spec: ModelSpec, sub_spec: ModelSpec, batch) -> Dict[str, torch.Tensor]:
+    """{mod: (V, B) mask of N_v / B} on the batch's device: the minibatch
+    masks, which depend on the data's shape only. A training loop builds
+    them once and passes them to every step."""
+    out = {}
+    for mod, smod in zip(spec.modalities, sub_spec.modalities):
+        B = smod.n_padded
+        w = torch.tensor(mod.n_samples, dtype=torch.float32,
+                         device=batch[mod.name]["coords"].device) / B
+        out[mod.name] = w[:, None].expand(spec.n_views, B)
+    return out
+
+
+def subsample_batch(
+    spec: ModelSpec,
+    sub_spec: ModelSpec,
+    batch,
+    generator: Optional[torch.Generator] = None,
+    indices: Optional[Dict[str, torch.Tensor]] = None,
+    weights: Optional[Dict[str, torch.Tensor]] = None,
+):
+    """Uniform-with-replacement point subsample per view per modality.
+
+    The masks carry ``N_v / B`` importance weights, so the masked likelihood
+    sum over the sub-batch is an unbiased estimator of the full-data one
+    (Hensman et al. 2013; the KL terms are data-independent). Indices are
+    drawn on the device in [0, N_v) for each view, from ``generator``, so
+    only real points are sampled and the step has no host sync; ``indices``
+    ({mod: (V, B) int64}) replaces the draw (the tests pass the JAX
+    package's). ``weights`` are the masks of :func:`importance_weights`,
+    built here when not given.
+    """
+    if weights is None:
+        weights = importance_weights(spec, sub_spec, batch)
+    sub = {}
+    for mod, smod in zip(spec.modalities, sub_spec.modalities):
+        B = smod.n_padded
+        b = batch[mod.name]
+        dev = b["coords"].device
+        if indices is not None:
+            idx = indices[mod.name].to(dev)
+        else:
+            idx = torch.stack([
+                torch.randint(n_v, (B,), generator=generator, device=dev) for n_v in mod.n_samples
+            ])
+        sub[mod.name] = {
+            "coords": torch.take_along_dim(b["coords"], idx[..., None], dim=1),
+            "outputs": torch.take_along_dim(b["outputs"], idx[..., None], dim=1),
+            "mask": weights[mod.name],
+        }
+    return sub
+
+
+def negative_elbo_minibatch(
+    spec: ModelSpec,
+    sub_spec: ModelSpec,
+    params: dict,
+    consts: dict,
+    batch,
+    S: int,
+    temperature: float = 1.0,
+    *,
+    generator: Optional[torch.Generator] = None,
+    indices: Optional[Dict[str, torch.Tensor]] = None,
+    warp_noise: Optional[torch.Tensor] = None,
+    data_noise: Optional[Dict[str, torch.Tensor]] = None,
+    weights: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Unbiased minibatch estimate of the negative ELBO: a fresh subsample
+    (:func:`subsample_batch`, indices drawn first) through
+    :func:`negative_elbo` on ``sub_spec``, the KL computed exactly."""
+    sub = subsample_batch(spec, sub_spec, batch, generator=generator, indices=indices,
+                          weights=weights)
+    return negative_elbo(
+        sub_spec, params, consts, sub, S, temperature, generator=generator,
+        warp_noise=warp_noise, data_noise=data_noise,
+    )
 
 
 def predict_mean(spec: ModelSpec, hp: dict, batch):

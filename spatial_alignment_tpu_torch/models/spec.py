@@ -142,7 +142,6 @@ def check_supported(spec: ModelSpec) -> None:
     unsupported = [
         (spec.triangular_variational, "triangular_variational=True", "queue A item 10"),
         (spec.whitened_variational, "whitened_variational=True", "queue A item 10"),
-        (spec.data_chunk_size is not None, "data_chunk_size", "queue A item 8"),
         (not spec.merged_factor_dispatch, "merged_factor_dispatch=False", "queue A item 14"),
     ]
     for bad, what, item in unsupported:

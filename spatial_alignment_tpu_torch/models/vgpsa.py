@@ -1,11 +1,11 @@
 """``VariationalGPSA`` in PyTorch: the user-facing model.
 
 Counterpart of ``spatial_alignment_tpu/models/vgpsa.py`` on its default
-path: construction (spec + seeded init), ``fit`` with Adam, ``forward``,
-``predict``, ``loss_fn`` and ``neg_elbo``. Each training step runs
-``core.negative_elbo`` forward and backward and one ``torch.optim.Adam``
-step; per-step losses stay on the device and are copied to the host once
-per chunk.
+path: construction (spec + seeded init), ``fit`` with Adam (full-batch or
+minibatch SVI), ``forward``, ``predict``, ``loss_fn`` and ``neg_elbo``. Each
+training step runs ``core.negative_elbo`` (or ``negative_elbo_minibatch``)
+forward and backward and one ``torch.optim.Adam`` step; per-step losses
+stay on the device and are copied to the host once per chunk.
 
 Divergences from the JAX package: torch optimizers instead of optax
 (``recipe="accurate"`` is Adam under ``CosineAnnealingLR`` to lr/100, the
@@ -327,13 +327,26 @@ class VariationalGPSA:
         from the model's generator."""
         return None, None
 
-    def _step(self, opt, sched, S: int, temp: float) -> torch.Tensor:
+    def _loss_fn(self, minibatch_size: Optional[int]):
+        """(params, S, temp, warp_noise, data_noise) -> scalar loss over the
+        training batch; the minibatch variant subsamples ``minibatch_size``
+        points per view on the device each call (``core.subsample_batch``)."""
+        spec, consts, batch, gen = self.spec, self.consts, self._batch, self._gen
+        if minibatch_size is None:
+            return lambda params, S, temp, wn, dn: core.negative_elbo(
+                spec, params, consts, batch, S, temp, generator=gen, warp_noise=wn, data_noise=dn
+            )
+        sub_spec = core.minibatch_spec(spec, minibatch_size)
+        weights = core.importance_weights(spec, sub_spec, batch)
+        return lambda params, S, temp, wn, dn: core.negative_elbo_minibatch(
+            spec, sub_spec, params, consts, batch, S, temp, generator=gen,
+            warp_noise=wn, data_noise=dn, weights=weights,
+        )
+
+    def _step(self, loss_fn, opt, sched, S: int, temp: float) -> torch.Tensor:
         warp_noise, data_noise = self._draw_noise(S)
         opt.zero_grad(set_to_none=True)
-        loss = core.negative_elbo(
-            self.spec, self.params, self.consts, self._batch, S, temp,
-            generator=self._gen, warp_noise=warp_noise, data_noise=data_noise,
-        )
+        loss = loss_fn(self.params, S, temp, warp_noise, data_noise)
         loss.backward()
         opt.step()
         if sched is not None:
@@ -364,10 +377,11 @@ class VariationalGPSA:
         anneals the warp noise; ``average_last=K`` replaces the final
         parameters with the mean of chunk-end snapshots from the last K
         epochs; ``recipe="accurate"`` is Adam under cosine decay to lr/100
-        with the temperature-0 objective.
+        with the temperature-0 objective. ``minibatch_size=B`` trains each
+        step on an unbiased B-points-per-view subsample (stochastic
+        variational inference); the returned trace holds the per-step
+        minibatch estimates.
         """
-        if minibatch_size is not None:
-            raise _not_ported("fit(minibatch_size=...)", "queue A item 8")
         if resume_from is not None:
             raise _not_ported("fit(resume_from=...)", "queue A item 6")
         if optimizer is not None:
@@ -376,6 +390,7 @@ class VariationalGPSA:
             raise ValueError(f"unknown recipe {recipe!r}")
         if self._batch is None:
             raise RuntimeError("this model has no training batch to fit on")
+        loss_fn = self._loss_fn(minibatch_size)
 
         leaves = self.parameters()
         opt = torch.optim.Adam(leaves, lr=lr)
@@ -405,7 +420,7 @@ class VariationalGPSA:
                 temps = np.asarray(warp_temperature_schedule(np.arange(t, t + n)), np.float32)
             else:
                 temps = np.ones(n, np.float32)
-            chunk = torch.stack([self._step(opt, sched, S, float(tt)) for tt in temps])
+            chunk = torch.stack([self._step(loss_fn, opt, sched, S, float(tt)) for tt in temps])
             losses[t : t + n] = chunk.cpu().numpy().astype(np.float64)
             if print_every and t % print_every == 0:
                 print(f"Iter: {t:<10} LL {-losses[t]:1.3e}", flush=True)

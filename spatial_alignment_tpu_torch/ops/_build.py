@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("cholesky", "trisolve", "quad", "factor")
+SOURCES = ("cholesky", "trisolve", "quad", "factor", "gram")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

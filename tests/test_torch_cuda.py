@@ -1,8 +1,8 @@
 """PyTorch port on the card: each CUDA kernel (Cholesky, triangular solve,
-quad-diag forward and backward, fused factor and inverse) against its plain
-version, and the model's loss, gradients and training loop on the card
-against the same computation on the CPU, with the default knobs and with
-the three kernel opt-ins.
+quad-diag forward and backward, fused factor and inverse, cross-Gram)
+against its plain version, and the model's loss, gradients and training
+loop on the card against the same computation on the CPU, with the default
+knobs, with the three kernel opt-ins and with the Gram switch.
 
 Every test here needs a CUDA device and nvcc (the kernels are built from
 ``csrc/`` at first use); without a device each one skips. The file imports
@@ -16,7 +16,14 @@ input, where the kernel and the plain version eliminate in other orders,
 and likewise for solves, inverses and quad-diag sums (float32 sums of m
 products in another order); rel 1e-4 on the loss and 1e-3 on gradients
 between card and CPU, where every reduction of the step runs in another
-order.
+order. The Gram kernel repeats its plain version's float32 operations in
+the same order, so only the exp and sqrt of two libraries differ: rel 1e-5;
+against the same arithmetic in float64, rel 1e-6. The expansion form
+|x|^2 + |z|^2 - 2 x.z cancels: with |x|^2 <= 200 its squared distance is off
+by up to about 6 * 2^-24 * 400 = 1.4e-4, which moves K / var by up to
+1.4e-4 / (2 l^2) for rbf and three times that for matern32 (l >= e^-0.5:
+2e-4 and 6e-4; held at 1e-3), and by sqrt(1.4e-4) / (2 l) = 1e-2 for
+matern12, whose distance is the square root of the cancelled sum.
 """
 
 import math
@@ -29,6 +36,7 @@ from spatial_alignment_tpu_torch import VariationalGPSA
 from spatial_alignment_tpu_torch.models import core
 from spatial_alignment_tpu_torch.ops import cholesky as ch
 from spatial_alignment_tpu_torch.ops import factor, quad
+from spatial_alignment_tpu_torch.ops import gram as gm
 from spatial_alignment_tpu_torch.ops import trisolve as ts
 
 pytestmark = pytest.mark.cuda
@@ -273,3 +281,89 @@ def test_cuda_opt_in_fit_launches_every_kernel(cuda_device, mode):
     assert (ch.launches, factor.launches, ts.launches) == (5, 5, 8 * 5)
     assert (quad.fwd_launches, quad.bwd_launches) == (2 * 5, 2 * 5)
     assert all(mod.plain_calls == 0 for mod in mods)
+
+
+# The Gram's shapes on the 100k-spot minibatch path (m = 100, B = 4096 per
+# view, S = 5): warp layer with per-view parameters, data layer, the data
+# layer in chunks of 2048, and predict() over 50,000 spots a view: (x1, x2,
+# per-view parameters).
+_GRAMS = [((1, 100, 2), (1, 4096, 2), True), ((100, 2), (5, 8192, 2), False),
+          ((100, 2), (5, 2048, 2), False), ((1, 100, 2), (1, 50000, 2), True),
+          ((100, 2), (1, 6250, 2), False), ((7, 3), (20, 3), False)]
+
+
+def _gram_inputs(x1_shape, x2_shape, per_view, device, seed=15):
+    rng = np.random.default_rng(seed)
+    n_par = x1_shape[0] if per_view else 1
+    x1 = rng.uniform(0, 10, x1_shape).astype(np.float32)
+    x2 = rng.uniform(0, 10, x2_shape).astype(np.float32)
+    ls = rng.uniform(-0.5, 1.0, n_par).astype(np.float32)
+    var = rng.uniform(-1.0, 0.5, n_par).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x1, x2, ls, var)]
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern12", "matern32"])
+@pytest.mark.parametrize("x1_shape,x2_shape,per_view", _GRAMS)
+def test_cuda_gram_matches_plain(cuda_device, x1_shape, x2_shape, per_view, kind):
+    ins = _gram_inputs(x1_shape, x2_shape, per_view, cuda_device)
+    before = gm.launches
+    K = gm.gram_kernel(*ins, kind)
+    torch.cuda.synchronize()
+    assert gm.launches == before + 1
+    Kp = gm.gram_plain(*ins, kind)
+    assert K.shape == Kp.shape and K.dtype == torch.float32
+    assert _rel(K, Kp) <= 1e-5
+    assert _rel(K, gm.gram_plain(*(t.double() for t in ins), kind)) <= 1e-6
+    # The expansion form, the unforced route (its cancellation: see above).
+    tol = 1e-2 if kind == "matern12" else 1e-3
+    assert _rel(K, gm.gram(*ins, kind, force=False)) <= tol
+
+
+def test_cuda_gram_bfloat16_store_and_empty(cuda_device):
+    ins = _gram_inputs((100, 2), (5, 2048, 2), False, cuda_device)
+    K = gm.gram_kernel(*ins, "matern32", out_dtype=torch.bfloat16)
+    Kp = gm.gram_plain(*ins, "matern32", out_dtype=torch.bfloat16)
+    assert K.dtype == torch.bfloat16
+    assert _rel(K.float(), Kp.float()) <= 2.0**-8
+    for x1_shape, x2_shape in (((0, 2), (3, 5, 2)), ((4, 2), (3, 0, 2))):
+        x1, x2, ls, var = _gram_inputs(x1_shape, x2_shape, False, cuda_device)
+        before = gm.launches
+        assert gm.gram_kernel(x1, x2, ls, var).shape == (3, x1_shape[0], x2_shape[1])
+        assert gm.launches == before
+
+
+def test_cuda_gram_gradient_matches_cpu(cuda_device):
+    """The forced Gram on the card (kernel forward, closed-form backward)
+    against the forced Gram on the CPU (plain forward), same cotangent."""
+    for x1_shape, x2_shape, per_view in (_GRAMS[0], _GRAMS[5]):
+        grads = []
+        for dev in (cuda_device, torch.device("cpu")):
+            ins = [t.to(dev).requires_grad_(True)
+                   for t in _gram_inputs(x1_shape, x2_shape, per_view, "cpu")]
+            K = gm.gram(*ins, "matern32", force=True)
+            w = torch.from_numpy(
+                np.random.default_rng(16).standard_normal(K.shape).astype(np.float32)
+            ).to(dev)
+            (K * w).sum().backward()
+            grads.append([t.grad for t in ins])
+        for g, c in zip(*grads):
+            assert _rel(g, c) <= 1e-3
+
+
+@pytest.mark.parametrize("chunk", [None, 16])
+def test_cuda_forced_minibatch_fit_launches_the_gram_kernel(cuda_device, chunk):
+    """Under set_gram_force(True), every Gram of a minibatch step is the
+    kernel: the warp layer's and the data layer's (one per chunk of the
+    2 x 24 sub-batch points); the Cholesky's two launches are unchanged."""
+    model = VariationalGPSA(_tiny_data(), m_X_per_view=16, m_G=16, fixed_view_idx=0,
+                            data_chunk_size=chunk, device=cuda_device)
+    gm.launches = gm.plain_calls = ch.launches = ch.plain_calls = 0
+    gm.set_gram_force(True)
+    try:
+        losses = model.fit(n_epochs=5, S=2, minibatch_size=24)
+    finally:
+        gm.set_gram_force(None)
+    assert np.isfinite(losses).all()
+    assert gm.launches == (1 + (48 // 16 if chunk else 1)) * 5
+    assert ch.launches == 2 * 5
+    assert gm.plain_calls == ch.plain_calls == 0

@@ -89,7 +89,7 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize(
     "kw",
-    [{"minibatch_size": 8}, {"resume_from": "x.npz"}, {"optimizer": object()}],
+    [{"resume_from": "x.npz"}, {"optimizer": object()}],
     ids=lambda kw: next(iter(kw)),
 )
 def test_fit_options_outside_the_slice_raise(kw):

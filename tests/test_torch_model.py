@@ -275,7 +275,6 @@ def test_jax_checkpoint_round_trip(tmp_path):
     [
         {"triangular_variational": True},
         {"whitened_variational": True},
-        {"data_chunk_size": 16},
     ],
     ids=lambda kw: next(iter(kw)),
 )
