@@ -53,7 +53,8 @@ backward); and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
              Gram launches (16 data-layer chunks), finite (100000, .) outputs,
              aligned error below the data's
   profile    (with --profile DIR) device time per step by kernel over 10
-             steps of each m = 200 fit and of the two unchunked 100k fits,
+             steps of each m = 200 fit, of fit_m50_pallas and of the two
+             unchunked 100k fits,
              the device's idle share, and the chrome traces in DIR
   ab_fit_m200  (with --profile DIR) steps/s of the two m = 200 fits in
              turns, default and opt-in, A B B A twice
@@ -93,11 +94,11 @@ SOURCES = {
 }
 GRAM_KINDS = ("rbf", "matern12", "matern32")
 
-# Published peaks (dense, no sparsity) used for the bound: memory rate and
-# float32 rate outside the tensor cores, by part.
+# Published peaks (dense, no sparsity) used for the bound: memory rate,
+# float32 rate outside the tensor cores and TF32 tensor-core rate, by part.
 _PEAKS = {
-    "sxm": (3.35e12, 67e12),
-    "pcie": (2.0e12, 51e12),
+    "sxm": (3.35e12, 67e12, 495e12),
+    "pcie": (2.0e12, 51e12, 378e12),
 }
 
 
@@ -652,10 +653,10 @@ def phase_kernels(device, real_inputs, peaks):
     return record, results, real
 
 
-def bound_ms(n_bytes, n_ops, peaks):
+def bound_ms(n_bytes, n_ops, peaks, op_rate=None):
     """(least time in ms, what sets it) for moving n_bytes and doing n_ops
-    fp32 operations at the part's published peaks."""
-    t_bytes, t_ops = n_bytes / peaks[0] * 1e3, n_ops / peaks[1] * 1e3
+    operations at the part's published peaks (fp32 unless op_rate)."""
+    t_bytes, t_ops = n_bytes / peaks[0] * 1e3, n_ops / (op_rate or peaks[1]) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -717,7 +718,11 @@ def check_factor(A, real, what):
 
     Lk, Ik = factor.cholesky_and_inverse_kernel(A)
     Lp, Ip = factor.cholesky_and_inverse_plain(A)
+    L2, I2 = factor.cholesky_and_inverse_kernel(A)
     torch.cuda.synchronize()
+    check(torch.equal(Lk.view(torch.int32), L2.view(torch.int32))
+          and torch.equal(Ik.view(torch.int32), I2.view(torch.int32)),
+          f"{what}: two launches differ")
     nk, np_ = ~torch_isfinite_lanes(Lk), ~torch_isfinite_lanes(Lp)
     check(bool((nk == np_).all()), f"{what}: NaN lanes differ")
     check(bool((torch.isnan(Ik).flatten(-2).any(-1) == nk).all()), f"{what}: L^-1 NaN lanes")
@@ -791,22 +796,34 @@ def phase_new_kernels(device, captured, peaks):
             xr = torch.randn(x.shape, generator=gen, device=device)
             Fr = 0.1 * torch.randn(F.shape, generator=gen, device=device)
             rk, rp = quad.quad_fwd_kernel(xr, Fr), quad.quad_diag_plain(xr, Fr)
+            twice = [quad.quad_fwd_kernel(x, F), quad.quad_fwd_kernel(xr, Fr)]
             torch.cuda.synchronize()
-            # Sums of m squares of m-term dot products: f32 in another order.
+            # Sums of m squares of m-term dot products: f32 in another order,
+            # the products in 3xTF32 (each about 2^-21 of a product off).
             rel_real, rel_rand = rel_err(yk, yp), rel_err(rk, rp)
             check(bool(torch.isfinite(yk).all()), "quad_fwd real: non-finite output")
             check(rel_real <= 1e-4, f"quad_fwd real {tuple(x.shape)}: rel {rel_real}")
             check(rel_rand <= 1e-4, f"quad_fwd random {tuple(x.shape)}: rel {rel_rand}")
-            b, by = bound_ms(4 * (x.numel() + F.numel() + G * Lc * N), 2 * G * N * Lc * m * m,
-                             peaks)
+            check(torch.equal(yk, twice[0]) and torch.equal(rk, twice[1]),
+                  f"quad_fwd {tuple(x.shape)}: two launches differ")
+            qlib = quad._library()
+            # The kernel's work: three TF32 products per fp32 product, at
+            # the TF32 peak; the fp32 bound of the first design beside it.
+            n_bytes = 4 * (x.numel() + F.numel() + G * Lc * N)
+            b, by = bound_ms(n_bytes, 3 * 2 * G * N * Lc * m * m, peaks, peaks[2])
+            b32, _ = bound_ms(n_bytes, 2 * G * N * Lc * m * m, peaks)
             rows["quad_fwd"].append({
                 "x": list(x.shape), "F": list(F.shape), "rel_vs_plain": rel_real,
                 "rel_vs_plain_random": rel_rand, "max_abs_err": float((yk - yp).abs().max()),
+                "bit_equal_twice": True, "products": "3xTF32 mma.sync m16n8k8",
+                "tile": [qlib.sat_quad_fwd_tile_rows(G, N, m, Lc),
+                         qlib.sat_quad_fwd_tile_cols(G, N, m, Lc)],
+                "cluster_k_splits": qlib.sat_quad_fwd_cluster(G, N, m, Lc),
                 "kernel_ms": median_ms(lambda: quad.quad_fwd_kernel(x, F)),
                 "plain_ms": median_ms(lambda: quad.quad_diag_plain(x, F)),
                 "library_ms": median_ms(lambda: x.unsqueeze(1) @ F),
                 "library": "torch.matmul producing t only",
-                "bound_ms": b, "bound_by": by})
+                "bound_ms": b, "bound_by": by, "bound_fp32_ms": b32})
         elif key == "quad_bwd":
             x, F, dy = args
             G, N, m = x.shape
@@ -848,9 +865,15 @@ def phase_new_kernels(device, captured, peaks):
                 eye = torch.eye(m, device=A.device).expand(A.shape)
                 return torch.linalg.solve_triangular(Lc, eye, upper=False)
 
+            # The blocked factor rounds as the column recurrence of the
+            # Cholesky kernel does (recorded, not held).
+            from spatial_alignment_tpu_torch.ops import cholesky as ch
+            same_l = bool(torch.equal(factor.cholesky_and_inverse_kernel(A)[0],
+                                      ch.cholesky_kernel(A)))
             rows["factor"].append({
                 "shape": list(A.shape), "smem": factor.uses_shared_memory(m), "real": real,
-                "random": rand,
+                "random": rand, "panel_nb": factor._library().sat_factor_panel(),
+                "blocks_per_matrix": 1, "l_bit_equal_to_cholesky_kernel": same_l,
                 "kernel_ms": median_ms(lambda: factor.cholesky_and_inverse_kernel(A)),
                 "plain_ms": median_ms(lambda: factor.cholesky_and_inverse_plain(A)),
                 "library_ms": median_ms(chain),
@@ -901,6 +924,21 @@ def phase_new_kernels(device, captured, peaks):
         check(bool(torch.isnan(out[1][lower]).all()), "factor: failed lane not NaN below")
         check(bool((out[1][~lower] == 0).all()), "factor: failed lane not 0 above")
         check(bool(torch.isfinite(out[[0, 2, 3]]).all()), "factor: failed lane leaked")
+    # Failing pivots in the first, a middle and the last 32-column panel
+    # (lanes 1-3; lanes 0 and 4 are SPD), at both path widths.
+    for m in (200, 50):
+        A = spd(gen, 5, m, device)
+        for lane, p in zip((1, 2, 3), (3, m // 2, m - 1)):
+            A[lane, p, p] = -5.0
+        Lk, Ik = factor.cholesky_and_inverse_kernel(A)
+        Lp, Ip = factor.cholesky_and_inverse_plain(A[[0, 4]])
+        torch.cuda.synchronize()
+        lower = torch.tril(torch.ones(m, m, dtype=torch.bool, device=device))
+        for out in (Lk, Ik):
+            check(bool(torch.isnan(out[1:4][:, lower]).all()), f"factor m={m}: panel lanes not NaN")
+            check(bool((out[1:4][:, ~lower] == 0).all()), f"factor m={m}: panel lanes not 0 above")
+        rel = max(rel_err(Lk[[0, 4]], Lp), rel_err(Ik[[0, 4]], Ip))
+        check(rel <= 1e-4, f"factor m={m}: lanes beside the failed ones: rel {rel}")
 
     # Autograd through each kernel on the card vs the plain path on the CPU.
     Lg = well_conditioned_factor(gen, (2, 200, 200), device)
@@ -1065,8 +1103,9 @@ def phase_ab(models, steps: int = 100, rounds: int = 2, S: int = 5):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", type=Path,
-                        help="also profile 10 steps of each m = 200 fit and of the two "
-                             "unchunked 100k fits (device time by kernel), write the chrome "
+                        help="also profile 10 steps of each m = 200 fit, of the opt-in m = 50 "
+                             "fit and of the two unchunked 100k fits (device time by kernel), "
+                             "write the chrome "
                              "traces into DIR, and time the two m = 200 fits in turns "
                              "(A B B A)")
     args = parser.parse_args()
@@ -1092,7 +1131,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-         peak_bytes_per_s=peaks[0], peak_fp32_flops=peaks[1])
+         peak_bytes_per_s=peaks[0], peak_fp32_flops=peaks[1], peak_tf32_flops=peaks[2])
 
     from spatial_alignment_tpu_torch import VariationalGPSA
     from spatial_alignment_tpu_torch.ops import _build
@@ -1254,6 +1293,7 @@ def main() -> int:
     if args.profile is not None:
         phase_profile("fit_m200", model, args.profile)
         phase_profile("fit_m200_pallas", model_p, args.profile)
+        phase_profile("fit_m50_pallas", model50_p, args.profile)
         phase_ab({"A": model, "B": model_p})
         phase_profile("fit_mb100k", model_mb, args.profile, minibatch_size=MB_B)
         with forced_gram():

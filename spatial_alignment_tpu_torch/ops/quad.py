@@ -57,8 +57,8 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("quad")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.sat_quad_fwd_f32.argtypes = [vp, vp, ll, vp, i, i, i, i, vp]
-        lib.sat_quad_fwd_f32.restype = i
+        lib.sat_quad_fwd_strided_f32.argtypes = [vp, ll, ll, ll, vp, ll, vp, i, i, i, i, vp]
+        lib.sat_quad_fwd_strided_f32.restype = i
         lib.sat_quad_bwd_f32.argtypes = [vp, vp, ll, vp, vp, vp, vp, i, i, i, i, i, i, vp]
         lib.sat_quad_bwd_f32.restype = i
         lib.sat_quad_bwd_splits.argtypes = [i, i, i, i, i]
@@ -108,12 +108,16 @@ def quad_fwd_kernel(x: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     out = torch.empty((G, L, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    x, F = x.contiguous(), F.contiguous()
+    F = F.contiguous()
+    # The kernel reads x by rows or transposed (the view the model passes)
+    # in place; any other layout is copied first.
+    if x.stride(-1) != 1 and x.stride(-2) != 1:
+        x = x.contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().sat_quad_fwd_f32(
-            x.data_ptr(), F.data_ptr(), L * m * m if per_group else 0, out.data_ptr(),
-            G, N, m, L, stream,
+        err = _library().sat_quad_fwd_strided_f32(
+            x.data_ptr(), *x.stride(), F.data_ptr(), L * m * m if per_group else 0,
+            out.data_ptr(), G, N, m, L, stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -167,45 +167,76 @@ def test_cuda_tri_inverse_matches_plain(cuda_device, shape):
 
 
 # The quad-diag's forms on the path: data layer (S, N, m) with shared
-# (L, m, m), warp layer (V, N, m) with per-view (V, D, m, m).
+# (L, m, m), warp layer (V, N, m) with per-view (V, D, m, m), the m = 50
+# fit's warp layer; then ragged shapes across the forward's 64-point and
+# 64-column tiles and its depth stages of 32 (m = 37 and 50 are not
+# multiples of 4 or 8: 4-byte copies, zero-filled edges), per group.
 _QUADS = [((5, 8100, 200), (10, 200, 200)), ((1, 4050, 200), (1, 2, 200, 200)),
-          ((5, 200, 50), (30, 50, 50))]
+          ((5, 200, 50), (30, 50, 50)), ((1, 100, 50), (1, 2, 50, 50)),
+          ((3, 130, 37), (3, 1, 37, 37)), ((3, 4050, 37), (3, 1, 37, 37)),
+          ((3, 130, 50), (3, 1, 50, 50)), ((3, 4050, 200), (3, 1, 200, 200)),
+          ((3, 130, 200), (3, 1, 200, 200))]
 
 
+@pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("x_shape,f_shape", _QUADS)
-def test_cuda_quad_matches_plain(cuda_device, x_shape, f_shape):
+def test_cuda_quad_matches_plain(cuda_device, x_shape, f_shape, transposed):
+    """Forward (3xTF32 tensor cores) and backward against the plain
+    versions, and two forward launches on the same input bit-equal; x by
+    rows, or a transposed view as the model passes it (read in place)."""
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).to(cuda_device)
+    if transposed:
+        x = x.transpose(-1, -2).contiguous().transpose(-1, -2)
     F = torch.from_numpy((0.1 * rng.standard_normal(f_shape)).astype(np.float32)).to(cuda_device)
     dy = torch.from_numpy(
         rng.standard_normal((x_shape[0], f_shape[-3], x_shape[1])).astype(np.float32)
     ).to(cuda_device)
     f0, b0 = quad.fwd_launches, quad.bwd_launches
     y = quad.quad_fwd_kernel(x, F)
+    y2 = quad.quad_fwd_kernel(x, F)
     dx, dF = quad.quad_bwd_kernel(x, F, dy)
     torch.cuda.synchronize()
-    assert (quad.fwd_launches, quad.bwd_launches) == (f0 + 1, b0 + 1)
+    assert (quad.fwd_launches, quad.bwd_launches) == (f0 + 2, b0 + 1)
+    assert torch.equal(y, y2)
     assert _rel(y, quad.quad_diag_plain(x, F)) <= 1e-4
     dx_p, dF_p = quad.quad_bwd_plain(x, F, dy)
     assert _rel(dx, dx_p) <= 1e-4
     assert _rel(dF, dF_p) <= 1e-4
 
 
-@pytest.mark.parametrize("shape", [(14, 200, 200), (34, 50, 50), (2, 256, 256)])
+# The path's slabs, the edges of the shared-memory design's 32-column
+# panels (1, 31, 32, 33, 65), the m = 100 slab, its largest size (240) and
+# the global-memory variant (256).
+@pytest.mark.parametrize("shape", [(14, 200, 200), (34, 50, 50), (4, 256, 256), (5, 1, 1),
+                                   (5, 31, 31), (5, 32, 32), (5, 33, 33), (5, 65, 65),
+                                   (5, 100, 100), (5, 240, 240)])
 def test_cuda_factor_matches_plain(cuda_device, shape):
-    A = torch.from_numpy(_spd(np.random.default_rng(12), shape[0], shape[-1])).to(cuda_device)
-    A[0] -= 3.0 * torch.eye(shape[-1], device=cuda_device)  # an indefinite lane
+    """Kernel vs plain version; indefinite lanes whose failing pivot lies in
+    the first, a middle and the last panel; two launches bit-equal."""
+    m = shape[-1]
+    A = torch.from_numpy(_spd(np.random.default_rng(12), shape[0], m)).to(cuda_device)
+    failing = [0, m // 2, m - 1]  # pivots: lanes 0, 1 and 2 fail there
+    for lane, p in enumerate(failing):
+        A[lane, p, p] = -5.0
+    assert factor.uses_shared_memory(m) == (m <= 240)
     before = factor.launches
     L, Linv = factor.cholesky_and_inverse_kernel(A)
+    L2, Linv2 = factor.cholesky_and_inverse_kernel(A)
     torch.cuda.synchronize()
-    assert factor.launches == before + 1
-    lower = torch.tril(torch.ones(shape[-1], shape[-1], dtype=torch.bool, device=cuda_device))
+    assert factor.launches == before + 2
+    assert torch.equal(L.view(torch.int32), L2.view(torch.int32))
+    assert torch.equal(Linv.view(torch.int32), Linv2.view(torch.int32))
+    lower = torch.tril(torch.ones(m, m, dtype=torch.bool, device=cuda_device))
+    n_bad = len(failing)
     for out in (L, Linv):
-        assert torch.isnan(out[0][lower]).all()
-        assert (out[0][~lower] == 0).all()
-    Lp, Linvp = factor.cholesky_and_inverse_plain(A[1:])
-    assert _rel(L[1:], Lp) <= 1e-4
-    assert _rel(Linv[1:], Linvp) <= 1e-4
+        for lane in range(n_bad):
+            assert torch.isnan(out[lane][lower]).all()
+            assert (out[lane][~lower] == 0).all()
+        assert torch.isfinite(out[n_bad:]).all()
+    Lp, Linvp = factor.cholesky_and_inverse_plain(A[n_bad:])
+    assert _rel(L[n_bad:], Lp) <= 1e-4
+    assert _rel(Linv[n_bad:], Linvp) <= 1e-4
 
 
 def test_cuda_kernel_gradients_match_cpu(cuda_device):

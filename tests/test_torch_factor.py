@@ -43,7 +43,7 @@ def _jax_chain(A):
     return L, jl.tri_inverse(L)
 
 
-@pytest.mark.parametrize("B,m", [(3, 20), (14, 50)])
+@pytest.mark.parametrize("B,m", [(3, 20), (14, 50), (3, 17), (3, 33), (2, 37)])
 def test_forward_matches_jax(B, m):
     A = _spd(np.random.default_rng(0), B, m)
     L, Linv = factor.cholesky_and_inverse(torch.from_numpy(A))

@@ -49,6 +49,11 @@ _FORMS = [
     ((3,), 40, 12, 4, False),  # data layer: S samples, shared (L, m, m)
     ((2, 3), 17, 9, 2, False),
     ((2,), 30, 10, 3, True),  # warp layer: per-view (V, D, m, m)
+    # Across the CUDA forward's tiles: ragged points and depths.
+    ((2,), 130, 37, 2, False),
+    ((3,), 130, 37, 1, True),
+    ((2,), 40, 17, 3, False),
+    ((2,), 33, 33, 2, True),
 ]
 
 
