@@ -25,11 +25,16 @@ backward); and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
   kernels    cholesky at every main-path shape (the m = 200 fit's and the
              100k fit's m = 100 slabs, captured from one loss of each), and
              at m = 256 (global-memory variant): error vs the plain version
-             on random and on the real inputs, reconstruction residual, NaN
-             lanes and contract, autograd vs the plain path, median times; then
-             trisolve, quad_fwd, quad_bwd and factor at every shape the
-             opt-in fits give them (captured from one loss and gradient of
-             each), on random well-conditioned input and on the real inputs;
+             on random and on the real inputs, reconstruction residual, two
+             launches bit-equal, L bit-equal to the fused factor's and to
+             the column recurrence's (its m = 256 variant on diag(A, I)) up
+             to m = 240, NaN lanes and contract (failing pivots in the first, a
+             middle and the last panel), autograd vs the plain path, median
+             times, the design (panel width, blocks per matrix, shared
+             memory); then trisolve, quad_fwd, quad_bwd and factor at every
+             shape the opt-in fits give them (captured from one loss and
+             gradient of each), on random well-conditioned input and on the
+             real inputs (trisolve and quad_fwd launched twice, bit-equal);
              then gram at every shape the forced 100k fits and predict() give
              it, for the three kernel kinds, against its plain version and
              the expansion form, with the bfloat16 store
@@ -579,6 +584,7 @@ def phase_kernels(device, real_inputs, peaks):
         B = math.prod(shape[:-2])
         A = spd(gen, B, m, device).reshape(shape)
         Lk = ch.cholesky_kernel(A)
+        Lk2 = ch.cholesky_kernel(A)
         Lp = ch.cholesky_plain(A)
         torch.cuda.synchronize()
         rel = rel_err(Lk, Lp)
@@ -588,13 +594,21 @@ def phase_kernels(device, real_inputs, peaks):
         check(rel <= 1e-4, f"cholesky {shape}: rel err vs plain {rel}")
         check(res <= 1e-5, f"cholesky {shape}: residual {res}")
         check(upper_zero, f"cholesky {shape}: nonzero above the diagonal")
+        check(bit_equal(Lk, Lk2), f"cholesky {shape}: two launches differ")
+        held_l = same_l(A, Lk)
         # Bound: each input byte read once, each output byte written once,
         # m^3/3 flops per matrix, against the part's published peaks.
         t_bytes = 2 * B * m * m * 4 / peaks[0] * 1e3
         t_ops = B * m**3 / 3 / peaks[1] * 1e3
         results[tuple(shape)] = {
             "shape": list(shape), "smem": ch.uses_shared_memory(m),
-            "rel_vs_plain": rel, "residual": res, "max_abs_err": float((Lk - Lp).abs().max()),
+            "smem_bytes": ch._library().sat_cholesky_smem_bytes(m),
+            "panel_nb": ch._library().sat_cholesky_panel(),
+            "blocks_per_matrix": ch._library().sat_cholesky_blocks_per_matrix(),
+            "bit_equal_twice": True,
+            "l_bit_equal_to_factor_and_recurrence": held_l, "rel_vs_plain": rel,
+            "residual": res,
+            "max_abs_err": float((Lk - Lp).abs().max()),
             "kernel_ms": median_ms(lambda: ch.cholesky_kernel(A)),
             "plain_ms": median_ms(lambda: ch.cholesky_plain(A)),
             "library_ms": median_ms(lambda: torch.linalg.cholesky(A)),
@@ -621,9 +635,11 @@ def phase_kernels(device, real_inputs, peaks):
         # ill-conditioned, so rel is bounded by 10 * cond * 2^-24.
         check(res <= 1e-5, f"real {tuple(A.shape)}: residual {res}")
         check(rel <= max(1e-4, 10 * cond * 2.0**-24), f"real {tuple(A.shape)}: rel {rel} (cond {cond})")
+        check(bit_equal(Lk, ch.cholesky_kernel(A)), f"real {tuple(A.shape)}: two launches differ")
         real.append({"shape": list(A.shape), "cond": cond, "rel_vs_plain": rel, "residual": res,
                      "max_abs_err": float((Lk[ok] - Lp[ok]).abs().max()),
-                     "nan_lanes": int(nan_k.sum())})
+                     "nan_lanes": int(nan_k.sum()), "bit_equal_twice": True,
+                     "l_bit_equal_to_factor_and_recurrence": same_l(A, Lk)})
 
     # NaN contract: an indefinite lane inside a batch.
     A = spd(gen, 4, 200, device)
@@ -636,6 +652,20 @@ def phase_kernels(device, real_inputs, peaks):
     others = Lk[[0, 2, 3]]
     check(bool(torch.isfinite(others).all()), "indefinite lane leaked into other lanes")
     check(rel_err(others, ch.cholesky_plain(A[[0, 2, 3]])) <= 1e-4, "other lanes differ")
+    # Failing pivots in the first, a middle and the last 32-column panel
+    # (lanes 1-3; lanes 0 and 4 are SPD), at both path widths.
+    for m in (200, 50):
+        A = spd(gen, 5, m, device)
+        for lane, p in zip((1, 2, 3), (3, m // 2, m - 1)):
+            A[lane, p, p] = -5.0
+        Lk = ch.cholesky_kernel(A)
+        torch.cuda.synchronize()
+        lower = torch.tril(torch.ones(m, m, dtype=torch.bool, device=device))
+        check(bool(torch.isnan(Lk[1:4][:, lower]).all()), f"cholesky m={m}: panel lanes not NaN")
+        check(bool((Lk[1:4][:, ~lower] == 0).all()), f"cholesky m={m}: panel lanes not 0 above")
+        rel = rel_err(Lk[[0, 4]], ch.cholesky_plain(A[[0, 4]]))
+        check(rel <= 1e-4, f"cholesky m={m}: lanes beside the failed ones: rel {rel}")
+        same_l(A, Lk)
 
     # Autograd: kernel forward + Murray backward on the card vs the plain
     # path on the CPU, same input and cotangent.
@@ -651,6 +681,37 @@ def phase_kernels(device, real_inputs, peaks):
     record = {"random_spd": list(results.values()), "real_grams": real,
               "nan_contract": "ok", "grad_rel_vs_plain": grad_rel}
     return record, results, real
+
+
+def bit_equal(a, b) -> bool:
+    """Equal bit for bit, NaN lanes included."""
+    import torch
+
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def same_l(A, L):
+    """Hold the Cholesky kernel's L (``L``, of ``A``) equal bit for bit to the
+    fused factor's, which runs the same blocked routine up to m = 240, and to
+    the column recurrence's, whose rounding that routine keeps: the kernel
+    factors diag(A, I) at m = 256 in its global-memory variant, the
+    recurrence, and the top-left block of that factor is A's. True when
+    held, None above m = 240, where the Cholesky kernel is the recurrence."""
+    import torch
+    from spatial_alignment_tpu_torch.ops import cholesky as ch
+    from spatial_alignment_tpu_torch.ops import factor
+
+    m = A.shape[-1]
+    if m > 240:
+        return None
+    check(bit_equal(factor.cholesky_and_inverse_kernel(A)[0], L),
+          f"{tuple(A.shape)}: the Cholesky kernel's L differs from the fused factor's")
+    big = torch.eye(256, device=A.device).repeat(A.shape[:-2] + (1, 1))
+    big[..., :m, :m] = A
+    Lr = ch.cholesky_kernel(big)[..., :m, :m].contiguous()
+    check(bit_equal(Lr, L),
+          f"{tuple(A.shape)}: the Cholesky kernel's L differs from the column recurrence's")
+    return True
 
 
 def bound_ms(n_bytes, n_ops, peaks, op_rate=None):
@@ -690,8 +751,10 @@ def check_trisolve(L, B, trans, tol_rel, what):
     from spatial_alignment_tpu_torch.ops import trisolve as ts
 
     Xk = ts.tri_solve_kernel(L, B, trans)
+    Xk2 = ts.tri_solve_kernel(L, B, trans)
     Xp = ts.tri_solve_plain(L, B, trans)
     torch.cuda.synchronize()
+    check(bit_equal(Xk, Xk2), f"{what}: two launches differ")
     fk, fp = torch_isfinite_lanes(Xk), torch_isfinite_lanes(Xp)
     check(bool((fk == fp).all()), f"{what}: non-finite lanes differ")
     Lf = L.expand(B.shape[:-2] + L.shape[-2:])[fk].double()
@@ -707,7 +770,7 @@ def check_trisolve(L, B, trans, tol_rel, what):
     check(rel <= tol_rel, f"{what}: rel vs plain {rel} (bound {tol_rel})")
     return {"rel_vs_plain": rel, "backward_error": back, "residual": resid,
             "max_abs_err": float((Xk[fk] - Xp[fk]).abs().max()),
-            "nonfinite_lanes": int((~fk).sum())}
+            "nonfinite_lanes": int((~fk).sum()), "bit_equal_twice": True}
 
 
 def check_factor(A, real, what):
@@ -782,6 +845,7 @@ def phase_new_kernels(device, captured, peaks):
             rows["trisolve"].append({
                 "L": list(L.shape), "B": list(B.shape), "trans": trans,
                 "factor_shared": n_factors == 1, "smem": ts.uses_shared_memory(m, n),
+                "panel_rows": ts._library().sat_trisolve_panel_rows(),
                 "real": real, "random": rand,
                 "kernel_ms": median_ms(lambda: ts.tri_solve_kernel(L, B, trans)),
                 "plain_ms": median_ms(lambda: ts.tri_solve_plain(L, B, trans)),
@@ -865,15 +929,17 @@ def phase_new_kernels(device, captured, peaks):
                 eye = torch.eye(m, device=A.device).expand(A.shape)
                 return torch.linalg.solve_triangular(Lc, eye, upper=False)
 
-            # The blocked factor rounds as the column recurrence of the
-            # Cholesky kernel does (recorded, not held).
+            # The fused factor and the Cholesky kernel run the same blocked
+            # routine: the same L bit for bit, the column recurrence's, on
+            # the real slab and on random input.
             from spatial_alignment_tpu_torch.ops import cholesky as ch
-            same_l = bool(torch.equal(factor.cholesky_and_inverse_kernel(A)[0],
-                                      ch.cholesky_kernel(A)))
+            held_l = same_l(A, ch.cholesky_kernel(A))
+            Ar = spd(gen, Bn, m, device).reshape(A.shape)
+            same_l(Ar, ch.cholesky_kernel(Ar))
             rows["factor"].append({
                 "shape": list(A.shape), "smem": factor.uses_shared_memory(m), "real": real,
                 "random": rand, "panel_nb": factor._library().sat_factor_panel(),
-                "blocks_per_matrix": 1, "l_bit_equal_to_cholesky_kernel": same_l,
+                "blocks_per_matrix": 1, "l_bit_equal_to_cholesky_kernel": held_l,
                 "kernel_ms": median_ms(lambda: factor.cholesky_and_inverse_kernel(A)),
                 "plain_ms": median_ms(lambda: factor.cholesky_and_inverse_plain(A)),
                 "library_ms": median_ms(chain),

@@ -5,30 +5,32 @@
 // package sends every f32 Cholesky with m >= 48 and batch >= 2 there; on the
 // GPU the port sends every Cholesky of a CUDA tensor here.
 //
-// Design: one thread block per matrix of the flattened batch, 256 threads,
-// right-looking elimination column by column:
-//   1. every thread reads the pivot A[j][j];                  barrier
-//   2. column j below the diagonal is scaled by 1/sqrt(pivot)
-//      and copied to a small shared column buffer;            barrier
-//   3. the trailing lower triangle takes the rank-1 update
-//      A[i][k] -= L[i][j] L[k][j], strided over the threads.  barrier
-// The matrix lives in dynamic shared memory when (m*m + m) floats fit in the
-// block's opt-in limit (m <= 238 on an H100). Above that, the same recurrence
-// runs in place on the output buffer in global memory, with only the column
-// buffer in shared memory. Nothing is padded: an m x m matrix is worked at
-// m x m.
+// What bounds it on the card: per matrix, ~m^3/3 flops on m*m*4 bytes read
+// and m*m*4 written. At the main path's (14, 200, 200) slab that is ~3.7e7
+// flops and ~4.5 MB, a bound of about a microsecond. What sets the time is
+// the chain of dependent steps in one matrix, each ended by a block
+// barrier, and one block per matrix (14 of 132 SMs busy at batch 14).
+//
+// Design: one thread block of 256 threads per matrix of the flattened
+// batch. Up to m = 240 the matrix is staged into shared memory with
+// cp.async (rows padded to m + 1 floats) and factored by the blocked
+// right-looking routine of common.cuh, which the fused factor (factor.cu)
+// runs too: panels of 32 columns, warp 0 factoring each diagonal block
+// with shuffles, warps 1..7 solving the rows below it, 8 x 8 register tiles
+// updating the lower triangle only, and the next diagonal block updated
+// first and factored beside the rest of the trailing update (look-ahead):
+// 2P + 1 barriers for P = ceil(m / 32) panels, 15 at m = 200 (600 in the
+// first design, the column recurrence). Its rounding is the column
+// recurrence's, IEEE square roots and divisions included, so L is the same
+// bit for bit here, in the fused factor and in the first design. Above
+// m = 240 the column recurrence (factor_in_place) runs in place on the
+// output buffer in global memory, with only a column buffer in shared
+// memory: off the main paths.
 //
 // NaN contract (the jitter probes of ops/linalg.py test the factor for NaN):
 // a pivot that is not > 0 (negative, zero or NaN) marks the matrix as failed,
 // and its whole lower triangle is written as NaN; the upper triangle is 0.
 // Other matrices of the batch are independent blocks and are unaffected.
-//
-// What bounds it on the card: per matrix, ~m^3/3 multiply-adds on m*m*4 bytes
-// read and m*m*4 written. At the main path's shapes, e.g. (14, 200, 200),
-// that is ~3.7e7 FLOP and ~4.5 MB, a bound of about a microsecond. This first
-// design is far from it: the m-step serial dependency with three block-wide
-// barriers per column, and at most one block per matrix (14 of 132 SMs busy
-// at batch 14), set its time, not bytes or FLOPs.
 
 #include "common.cuh"
 
@@ -36,25 +38,23 @@ namespace {
 
 constexpr int kThreads = kCholThreads;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 cholesky_smem_kernel(const float* __restrict__ in, float* __restrict__ out, int m) {
   extern __shared__ float smem[];
-  float* a = smem;          // m * m
-  float* col = smem + m * m;  // m
+  const int ld = m + 1;
+  float* a = smem;           // m x ld
+  float* diag = a + m * ld;  // m: 1 / L_ii, written by the routine, unused here
   const size_t off = (size_t)blockIdx.x * m * m;
-  const float* src = in + off;
-  float* dst = out + off;
-  const int mm = m * m;
-  for (int t = threadIdx.x; t < mm; t += kThreads) a[t] = src[t];
-  __syncthreads();
-  const bool ok = factor_in_place(a, col, m);
+  stage_padded(a, in + off, m, ld);
+  __shared__ int failed;
+  const bool ok = blocked_cholesky<false>(a, diag, &failed, m, ld);
   __syncthreads();
   const float nan = quiet_nan();
-  for (int t = threadIdx.x; t < mm; t += kThreads) {
-    const int r = t / m;
-    const int c = t - r * m;
-    dst[t] = (c <= r) ? (ok ? a[t] : nan) : 0.0f;
-  }
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int r = warp; r < m; r += kWarps)
+    for (int c = lane; c < m; c += 32)
+      out[off + (size_t)r * m + c] = c <= r ? (ok ? a[r * ld + c] : nan) : 0.0f;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -84,12 +84,26 @@ extern "C" {
 // device (-1 on error).
 int sat_cholesky_smem_limit() { return smem_optin_limit(); }
 
-// 1 when an m x m factorization runs in shared memory, 0 when it runs in
-// global memory, -1 on error.
+// 1 when an m x m factorization runs in shared memory (the blocked design),
+// 0 when it runs in global memory, -1 on error.
 int sat_cholesky_uses_smem(int m) {
   const int limit = smem_optin_limit();
   if (limit < 0) return -1;
-  return ((size_t)m * m + m) * sizeof(float) <= (size_t)limit ? 1 : 0;
+  return blocked_smem_bytes(m) <= (size_t)limit ? 1 : 0;
+}
+
+// Columns per panel of the shared-memory design.
+int sat_cholesky_panel() { return NB; }
+
+// Thread blocks per matrix (one: a matrix never spans SMs).
+int sat_cholesky_blocks_per_matrix() { return 1; }
+
+// Dynamic shared memory of one block for an m x m matrix, in bytes.
+long long sat_cholesky_smem_bytes(int m) {
+  const int limit = smem_optin_limit();
+  if (limit < 0) return -1;
+  const size_t smem = blocked_smem_bytes(m);
+  return (long long)(smem <= (size_t)limit ? smem : (size_t)m * sizeof(float));
 }
 
 // in, out: `batch` contiguous row-major m x m float32 matrices on the device.
@@ -99,7 +113,7 @@ int sat_cholesky_f32(const void* in, void* out, long long batch, int m, void* st
   const int limit = smem_optin_limit();
   if (limit < 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = ((size_t)m * m + m) * sizeof(float);
+  const size_t smem = blocked_smem_bytes(m);
   if (smem <= (size_t)limit) {
     cudaError_t e = cudaFuncSetAttribute(
         cholesky_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

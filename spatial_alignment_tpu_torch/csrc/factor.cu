@@ -13,26 +13,18 @@
 // design took one column per step, 5 m barriers in series per matrix.
 //
 // Design, up to m = 240: one block of 256 threads (8 warps) per matrix,
-// the matrix in shared memory with rows padded to m + 1 floats (a column
-// read by 32 lanes then hits 32 banks). Blocked by panels of NB = 32
-// columns, one warp wide: lane i holds row i of a 32 x 32 diagonal block in
-// registers, and warp 0 factors and inverts it with shuffles alone.
-//   Cholesky, right-looking, per panel [j0, j1), three barriers:
-//     a. warp 0 factors the diagonal block and stores L11, 1 / L_ii and
-//        the verdict on the pivots; a pivot that is not > 0 ends every
-//        thread's factorization here.                               barrier
-//     b. warps 1..7 solve the rows below, L21 = A21 L11^-T, one row a lane
-//        with L11 read by every lane at once, and store each row twice: in
-//        place and transposed into the panel's rows above the trailing
-//        matrix (upper triangle, free until the inverse); warp 0 meanwhile
-//        inverts L11 from its registers and keeps W11 transposed in the
-//        upper triangle of the diagonal block.                     barrier
-//     c. the block applies the rank-NB update A22 -= L21 L21^T to the
-//        trailing lower triangle only, each thread an 8 x 8 register tile
-//        on or below the diagonal (tile index to tile row and column once
-//        per tile, no division per element), reading L21 along the
-//        transposed rows; rows and columns of a tile are taken in an order
-//        rotated by the tile, so 32 lanes read 32 banks.            barrier
+// the matrix staged into shared memory with cp.async, rows padded to m + 1
+// floats. The Cholesky is the blocked routine of common.cuh, which the
+// Cholesky kernel (cholesky.cu) runs too: panels of NB = 32 columns, warp 0
+// factoring each diagonal block with shuffles and here also inverting it
+// from its registers (W11 kept transposed above the block's diagonal),
+// warps 1..7 solving the rows below, 8 x 8 register tiles updating the
+// lower triangle, the next diagonal block factored beside the trailing
+// update: 2P + 1 barriers for P = ceil(m / NB) panels. Its L rounds as the
+// column-at-a-time recurrence, so it is the Cholesky kernel's bit for bit,
+// the default route's factor: the init's Grams (cond ~1e6) magnify any
+// other rounding, and with L rounded otherwise the opt-in route's first
+// loss parted from the default route's by up to 1.44e-3 (PERF.md).
 //   Inverse, W = L^-1 by blocked forward substitution against I, for each
 //   block row K (B = I below the diagonal, B_KK = I, so W_KK = W11 of panel
 //   K), two barriers:
@@ -40,23 +32,14 @@
 //                                                                   barrier
 //     e. below block row K: B_IK = -L_IK W_KK (B was I there), a thread a
 //        row; B_IJ -= L_IK W_KJ for J < K, 8 x 8 register tiles.    barrier
-//   3P + 2(P - 1) + 2 barriers per matrix for P = ceil(m / NB) panels: 35
-//   at m = 200 (1,000 before). A design with two barriers a panel, every
-//   warp factoring the diagonal block itself, took 28 and was slower
-//   (PERF.md): eight warps on the same shuffles. W's strict lower triangle is kept transposed in the
-//   upper triangle of the same buffer and its diagonal in m floats:
-//   (m^2 + 2m) floats in all, as in the first design, 161,600 B at m = 200,
-//   232,320 B at m = 240 under the 232,448 B a block may have. NB = 32 is
-//   one warp, and 8 x 8 tiles of the NB-deep products give 4 multiply-adds
-//   per shared-memory load.
-//   L takes the same operations in the same order as the column-at-a-time
-//   recurrence of common.cuh: each update is one fused multiply-add per
-//   column, in column order, into the stored value, and the panel divides
-//   by the pivot's root. So L is the Cholesky kernel's bit for bit, the
-//   default route's factor: the init's Grams (cond ~1e6) magnify any other
-//   rounding, and with L rounded otherwise the opt-in route's first loss
-//   parted from the default route's by up to 1.1e-3 (PERF.md). The inverse
-//   multiplies by 1 / L_ii and by W_KK, which is faster.
+//   (2P + 1) + 2(P - 1) + 2 barriers per matrix: 29 at m = 200 (1,000 in the
+//   first design). A design with every warp factoring the diagonal block
+//   itself was slower (PERF.md): eight warps on the same shuffles. W's
+//   strict lower triangle is kept transposed in the upper triangle of the
+//   same buffer and its diagonal in m floats: (m^2 + 2m) floats in all,
+//   161,600 B at m = 200, 232,320 B at m = 240 under the 232,448 B a block
+//   may have. The inverse multiplies by 1 / L_ii and by W_KK, which is
+//   faster than the recurrence's division.
 // One block per matrix: 14 of 132 SMs at (14, 200, 200). A cluster per
 // matrix was not built (PERF.md).
 // Above m = 240 both phases run as in the first design, in place in global
@@ -108,179 +91,6 @@ __device__ void invert_lower(const float* a, int m, float* w, int w_row, int w_c
     }
     __syncthreads();  // the rows below j are updated before row j + 1 is read
   }
-}
-
-// ---- The blocked shared-memory design (m <= 240). ----
-
-constexpr int NB = 32;                  // panel width: one warp
-constexpr int kWarps = kThreads / 32;
-constexpr int TS = 8;                   // register tile of the block products
-constexpr unsigned kFull = 0xffffffffu;
-
-// Factor the warp's NB x NB block: lane i holds row i, r[k] for k <= i (0
-// above the diagonal; rows past the block's edge are rows of I), and ends
-// with 1 / L_ii in rd. Returns false in every lane when a pivot is not > 0.
-__device__ __forceinline__ bool chol_warp(float (&r)[NB], float& rd, int lane) {
-  rd = 1.0f;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    const float piv = __shfl_sync(kFull, r[j], j);
-    if (!(piv > 0.0f)) return false;
-    const float d = sqrtf(piv);
-    if (lane == j) {
-      r[j] = d;
-      rd = 1.0f / d;
-    } else if (lane > j) {
-      r[j] = r[j] / d;
-    }
-#pragma unroll
-    for (int k = j + 1; k < NB; ++k) {
-      const float lkj = __shfl_sync(kFull, r[j], k);
-      if (lane >= k) r[k] = fmaf(-r[j], lkj, r[k]);
-    }
-  }
-  return true;
-}
-
-// w := column `lane` of L11^-1 (0 above the diagonal), L11 as above.
-__device__ __forceinline__ void inv_warp(float (&w)[NB], const float (&r)[NB], float rd,
-                                         int lane) {
-#pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    float s = i == lane ? 1.0f : 0.0f;
-#pragma unroll
-    for (int k = 0; k < i; ++k) s = fmaf(-__shfl_sync(kFull, r[k], i), w[k], s);
-    w[i] = s * __shfl_sync(kFull, rd, i);
-  }
-}
-
-// acc[i][j] -= u[k * us + ui[i]] v[k * vs + vj[j]] for k = k0, k0 + 1, ...
-// in turn: an 8 x 8 register tile, 16 shared-memory loads per 64
-// multiply-adds, rounded as the column-at-a-time recurrence rounds
-// (common.cuh, cholesky.cu), one fused multiply-add per column.
-__device__ __forceinline__ void tile_update(float (&acc)[TS][TS], int k0, int k1,
-                                            const float* u, int us, const int (&ui)[TS],
-                                            const float* v, int vs, const int (&vj)[TS]) {
-  for (int k = k0; k < k1; ++k) {
-    float uk[TS], vk[TS];
-#pragma unroll
-    for (int i = 0; i < TS; ++i) uk[i] = u[k * us + ui[i]];
-#pragma unroll
-    for (int j = 0; j < TS; ++j) vk[j] = v[k * vs + vj[j]];
-#pragma unroll
-    for (int i = 0; i < TS; ++i)
-#pragma unroll
-      for (int j = 0; j < TS; ++j) acc[i][j] = fmaf(-uk[i], vk[j], acc[i][j]);
-  }
-}
-
-// A tile's 8 rows or columns x0 + ((i + rot) & 7), taken in an order
-// rotated by rot = (tile >> 2) & 7 so that 32 lanes on neighbouring tiles
-// read 32 different banks at every step.
-__device__ __forceinline__ void rotated(int (&o)[TS], int x0, int tile) {
-  const int rot = (tile >> 2) & 7;
-#pragma unroll
-  for (int i = 0; i < TS; ++i) o[i] = x0 + ((i + rot) & 7);
-}
-
-// The blocked Cholesky of the matrix in `a` (row stride ld), W11 of every
-// panel kept transposed above its diagonal block and 1 / L_ii in diag.
-// Returns false, in every thread, when a pivot was not > 0 (`failed`: one
-// int of shared memory).
-__device__ bool blocked_cholesky(float* a, float* diag, int* failed, int m, int ld) {
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  for (int j0 = 0; j0 < m; j0 += NB) {
-    const int jb = min(NB, m - j0);
-    const int j1 = j0 + jb;
-    float r[NB], rd;
-    if (warp == 0) {
-#pragma unroll
-      for (int k = 0; k < NB; ++k)
-        r[k] = lane < jb ? (k <= lane ? a[(j0 + lane) * ld + j0 + k] : 0.0f)
-                         : (k == lane ? 1.0f : 0.0f);
-      const bool good = chol_warp(r, rd, lane);
-      if (lane == 0) *failed = !good;
-      if (good && lane < jb) {
-#pragma unroll
-        for (int k = 0; k < NB; ++k)
-          if (k <= lane) a[(j0 + lane) * ld + j0 + k] = r[k];
-        diag[j0 + lane] = rd;
-      }
-    }
-    __syncthreads();  // (a) L11, 1 / L_ii and the verdict are in shared memory
-    if (*failed) return false;
-    if (warp == 0) {
-      // W11 = L11^-1 from the registers, transposed into the upper triangle
-      // of the diagonal block, which the factorization never reads.
-      float w[NB];
-      inv_warp(w, r, rd, lane);
-#pragma unroll
-      for (int i = 0; i < NB; ++i)
-        if (i > lane && i < jb) a[(j0 + lane) * ld + j0 + i] = w[i];
-    } else {
-      // L21 = A21 L11^-T, one row a lane of warps 1..7, L11 read by every
-      // lane at once. Each row also goes, transposed, into the panel's rows
-      // above the trailing matrix (P[k][i] = L[i][j0 + k] at a[(j0 + k) ld +
-      // i], upper triangle, unused until the inverse), where the trailing
-      // update reads rows and columns alike along a row.
-      for (int i0 = j1 + (warp - 1) * 32; i0 < m; i0 += kThreads - 32) {
-        const int i = i0 + lane;
-        float x[NB];
-#pragma unroll
-        for (int k = 0; k < NB; ++k) x[k] = (i < m && k < jb) ? a[i * ld + j0 + k] : 0.0f;
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          if (j < jb) {
-            float s = x[j];
-#pragma unroll
-            for (int k = 0; k < j; ++k) s = fmaf(-x[k], a[(j0 + j) * ld + j0 + k], s);
-            x[j] = s / a[(j0 + j) * ld + j0 + j];
-          }
-        }
-        if (i < m) {
-#pragma unroll
-          for (int k = 0; k < NB; ++k) {
-            if (k < jb) {
-              a[i * ld + j0 + k] = x[k];
-              a[(j0 + k) * ld + i] = x[k];
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // (b) L21 is stored
-    const int nt = (m - j1 + TS - 1) / TS;
-    const float* P = a + j0 * ld;
-    for (int t = tid; t < nt * (nt + 1) / 2; t += kThreads) {
-      int R = (int)((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
-      while (R * (R + 1) / 2 > t) --R;
-      while ((R + 1) * (R + 2) / 2 <= t) ++R;
-      const int C = t - R * (R + 1) / 2;
-      int ri[TS], cj[TS], rr[TS], cc[TS];  // rows, columns, and both kept < m for reads
-      rotated(ri, j1 + TS * R, R);
-      rotated(cj, j1 + TS * C, C);
-#pragma unroll
-      for (int i = 0; i < TS; ++i) {
-        rr[i] = min(ri[i], m - 1);
-        cc[i] = min(cj[i], m - 1);
-      }
-      float acc[TS][TS];
-#pragma unroll
-      for (int i = 0; i < TS; ++i)
-#pragma unroll
-        for (int j = 0; j < TS; ++j) acc[i][j] = a[rr[i] * ld + cc[j]];
-      tile_update(acc, 0, jb, P, ld, rr, P, ld, cc);
-#pragma unroll
-      for (int i = 0; i < TS; ++i)
-#pragma unroll
-        for (int j = 0; j < TS; ++j)
-          if (ri[i] < m && cj[j] <= ri[i]) a[ri[i] * ld + cj[j]] = acc[i][j];
-    }
-    __syncthreads();  // (c) the trailing matrix is updated
-  }
-  return true;
 }
 
 // W = L^-1 by blocked forward substitution, W[i][c] (i > c) at a[c ld + i].
@@ -359,7 +169,7 @@ __device__ void blocked_inverse(float* a, const float* diag, int m, int ld) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 factor_smem_kernel(const float* __restrict__ in, float* __restrict__ out_l,
                    float* __restrict__ out_inv, int m) {
   extern __shared__ float smem[];
@@ -367,16 +177,14 @@ factor_smem_kernel(const float* __restrict__ in, float* __restrict__ out_l,
   float* a = smem;            // m x ld: L below, W^T above the diagonal
   float* diag = a + m * ld;   // m: 1 / L_ii, the diagonal of W
   const size_t off = (size_t)blockIdx.x * m * m;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = warp; r < m; r += kWarps)
-    for (int c = lane; c < m; c += 32) a[r * ld + c] = in[off + (size_t)r * m + c];
-  __syncthreads();
+  stage_padded(a, in + off, m, ld);
   __shared__ int failed;
-  const bool ok = blocked_cholesky(a, diag, &failed, m, ld);
+  const bool ok = blocked_cholesky<true>(a, diag, &failed, m, ld);
   if (ok) blocked_inverse(a, diag, m, ld);
   __syncthreads();
   const float nan = quiet_nan();
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   for (int r = warp; r < m; r += kWarps)
     for (int c = lane; c < m; c += 32) {
       const size_t o = off + (size_t)r * m + c;
@@ -427,7 +235,7 @@ int sat_factor_panel() { return NB; }
 int sat_factor_uses_smem(int m) {
   const int limit = smem_optin_limit();
   if (limit < 0) return -1;
-  return ((size_t)m * m + 2 * (size_t)m) * sizeof(float) <= (size_t)limit ? 1 : 0;
+  return blocked_smem_bytes(m) <= (size_t)limit ? 1 : 0;
 }
 
 // in: `batch` contiguous row-major symmetric m x m float32 matrices on the
@@ -439,7 +247,7 @@ int sat_factor_f32(const void* in, void* out_l, void* out_inv, long long batch, 
   const int limit = smem_optin_limit();
   if (limit < 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = ((size_t)m * m + 2 * (size_t)m) * sizeof(float);
+  const size_t smem = blocked_smem_bytes(m);
   if (smem <= (size_t)limit) {
     cudaError_t e = cudaFuncSetAttribute(
         factor_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from .spec import ModelSpec, _as_numpy, view_slices
 
 __all__ = ["kmeans_centers", "init_inducing", "init_params", "merge_hyperparams"]
@@ -159,9 +160,11 @@ def init_params(
     fixed_warp_kernel_variances=None,
     fixed_warp_kernel_lengthscales=None,
     fixed_data_kernel_lengthscales=None,
-    device="cpu",
+    device=None,
 ) -> Tuple[dict, dict, ModelSpec]:
-    """Build (params, consts, possibly-updated spec) as tensors on ``device``."""
+    """Build (params, consts, possibly-updated spec) as tensors on ``device``
+    (the GPU unless ``device="cpu"``; raises without a card)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     V, D = spec.n_views, spec.n_spatial_dims
 

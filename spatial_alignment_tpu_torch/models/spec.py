@@ -28,6 +28,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
+
 
 @dataclass(frozen=True)
 class ModalitySpec:
@@ -344,9 +346,11 @@ def view_mask(spec: ModelSpec, mod: ModalitySpec) -> np.ndarray:
 
 
 def pack_coords(
-    spec: ModelSpec, X_spatial: Dict[str, np.ndarray], device="cpu"
+    spec: ModelSpec, X_spatial: Dict[str, np.ndarray], device=None
 ) -> Dict[str, torch.Tensor]:
-    """Concatenated (N_mod, D) coords -> padded (V, N_pad, D) per modality."""
+    """Concatenated (N_mod, D) coords -> padded (V, N_pad, D) per modality,
+    on ``device`` (the GPU unless ``device="cpu"``; raises without a card)."""
+    device = resolve_device(device)
     out = {}
     for mod in spec.modalities:
         x = _as_numpy(X_spatial[mod.name]).astype(np.float32)
@@ -355,9 +359,11 @@ def pack_coords(
 
 
 def pack_batch(
-    spec: ModelSpec, data_dict: Dict[str, dict], device="cpu"
+    spec: ModelSpec, data_dict: Dict[str, dict], device=None
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Full padded batch: coords, outputs, mask per modality."""
+    """Full padded batch: coords, outputs, mask per modality, on ``device``
+    (the GPU unless ``device="cpu"``; raises without a card)."""
+    device = resolve_device(device)
     coords = pack_coords(
         spec, {m: data_dict[m]["spatial_coords"] for m in spec.modality_names}, device
     )

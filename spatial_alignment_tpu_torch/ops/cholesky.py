@@ -52,6 +52,8 @@ def _library() -> ctypes.CDLL:
         lib.sat_cholesky_f32.restype = ctypes.c_int
         lib.sat_cholesky_uses_smem.argtypes = [ctypes.c_int]
         lib.sat_cholesky_uses_smem.restype = ctypes.c_int
+        lib.sat_cholesky_smem_bytes.argtypes = [ctypes.c_int]
+        lib.sat_cholesky_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 

@@ -72,22 +72,56 @@ def _tiny_data():
                            "n_samples_list": [40, 40]}}
 
 
-@pytest.mark.parametrize("shape", [(2, 50, 50), (34, 50, 50), (14, 200, 200), (2, 256, 256)])
+# The path's slabs, then ragged sizes: the edges of the 32-column panels
+# (1, 31, 32, 33, 65), the 100k fit's m = 100, the last sizes of the
+# shared-memory design (238 to 240) and the global-memory variant (241, 256).
+_CHOL_SHAPES = [(2, 50, 50), (34, 50, 50), (14, 200, 200), (2, 256, 256)] + [
+    (5, m, m) for m in (1, 31, 32, 33, 65, 100, 200, 238, 239, 240, 241, 256)]
+
+
+@pytest.mark.parametrize("shape", _CHOL_SHAPES)
 def test_cuda_kernel_matches_plain(cuda_device, shape):
     """Kernel vs plain version on the card: rel 1e-4 on well-conditioned
-    input, the NaN contract, and one launch counted per call."""
-    A = torch.from_numpy(_spd(np.random.default_rng(6), shape[0], shape[-1])).to(cuda_device)
-    A[0] -= 3.0 * torch.eye(shape[-1], device=cuda_device)  # an indefinite lane
+    input, the NaN contract (an indefinite lane, and with a batch of 5
+    lanes whose failing pivot lies in the first, a middle and the last
+    panel), one launch counted per call, two launches bit-equal, and, up to
+    m = 240, L equal bit for bit to the fused factor's and to the column
+    recurrence's."""
+    m = shape[-1]
+    A = torch.from_numpy(_spd(np.random.default_rng(6), shape[0], m)).to(cuda_device)
+    A[0] -= 3.0 * torch.eye(m, device=cuda_device)  # an indefinite lane
+    if m == 1:
+        A[0] = -1.0  # a 1 x 1 draw a^2 + 1 - 3 may stay positive
+    bad = [0]
+    if shape[0] >= 5:
+        for lane, p in zip((1, 2, 3), (0, m // 2, m - 1)):
+            A[lane, p, p] = -5.0
+        bad += [1, 2, 3]
+    assert ch.uses_shared_memory(m) == (m <= 240)
     before = ch.launches
     Lk = ch.cholesky_kernel(A)
+    Lk2 = ch.cholesky_kernel(A)
     torch.cuda.synchronize()
-    assert ch.launches == before + 1
-    Lp = ch.cholesky_plain(A)
-    lower = torch.tril(torch.ones(shape[-1], shape[-1], dtype=torch.bool, device=cuda_device))
-    assert torch.isnan(Lk[0][lower]).all()
-    assert (Lk[0][~lower] == 0).all()
-    assert _rel(Lk[1:], Lp[1:]) <= 1e-4
-    assert torch.count_nonzero(torch.triu(Lk[1:], 1)) == 0
+    assert ch.launches == before + 2
+    assert torch.equal(Lk.view(torch.int32), Lk2.view(torch.int32))
+    if m <= 240:
+        Lf, _ = factor.cholesky_and_inverse_kernel(A)
+        # The column recurrence, whose rounding the blocked routine keeps:
+        # the kernel's global-memory variant on diag(A, I) at m = 256.
+        big = torch.eye(256, device=cuda_device).repeat(shape[0], 1, 1)
+        big[:, :m, :m] = A
+        Lr = ch.cholesky_kernel(big)[:, :m, :m].contiguous()
+        torch.cuda.synchronize()
+        assert torch.equal(Lk.view(torch.int32), Lf.view(torch.int32))
+        assert torch.equal(Lk.view(torch.int32), Lr.view(torch.int32))
+    lower = torch.tril(torch.ones(m, m, dtype=torch.bool, device=cuda_device))
+    for lane in bad:
+        assert torch.isnan(Lk[lane][lower]).all()
+        assert (Lk[lane][~lower] == 0).all()
+    good = Lk[len(bad):]
+    assert torch.isfinite(good).all()
+    assert _rel(good, ch.cholesky_plain(A[len(bad):])) <= 1e-4
+    assert torch.count_nonzero(torch.triu(good, 1)) == 0
 
 
 def test_cuda_cholesky_gradient_matches_cpu(cuda_device):
@@ -136,34 +170,91 @@ def test_cuda_fit_launches_the_kernel_every_step(cuda_device):
 
 OPT_INS = dict(cholesky_impl="pallas", quad_diag_impl="pallas", fused_factor_inverse="fused")
 
-# The main path's solves (warp and data layers of the m = 200 fit) and the
-# m = 50 fit's width-N solves: (L shape, B shape).
-_SOLVES = [((1, 200, 200), (1, 200, 2)), ((200, 200), (200, 10)), ((50, 50), (5, 50, 200))]
+# The main path's solves (warp and data layers of the m = 200 fit), the
+# m = 50 fit's width-N solves, then ragged sizes across the 32-row panels and
+# the 32-column tiles, one factor per matrix and one shared by the batch:
+# (L shape, B shape).
+_SOLVES = [((1, 200, 200), (1, 200, 2)), ((200, 200), (200, 10)), ((50, 50), (5, 50, 200)),
+           ((1, 50, 50), (1, 50, 100))]
+_SOLVES += [((2, m, m), (2, m, n)) for m in (1, 31, 32, 33, 100, 200) for n in (1, 2, 10, 32, 33)]
+_SOLVES += [((m, m), (3, m, n)) for m in (33, 200) for n in (2, 33)]
+# Where two staged panels and the tile overrun a block's shared memory
+# (m > 592 against 32 columns, m > 854 against 2), L is read from global
+# memory.
+_SOLVES += [((1, 600, 600), (1, 600, 33)), ((1, 900, 900), (1, 900, 2))]
 
 
 @pytest.mark.parametrize("trans", [False, True])
 @pytest.mark.parametrize("l_shape,b_shape", _SOLVES)
 def test_cuda_trisolve_matches_plain(cuda_device, l_shape, b_shape, trans):
+    """Kernel vs plain version, one launch counted per call, two launches
+    bit-equal; with one factor per matrix, a zero (forward) or NaN
+    (transposed) pivot in the first matrix spreads through that matrix only,
+    and the others are the clean solve's bit for bit."""
     rng = np.random.default_rng(9)
-    L = torch.from_numpy(_factor(rng, 1, l_shape[-1]).reshape(l_shape)).to(cuda_device)
+    m = l_shape[-1]
+    L = torch.from_numpy(_factor(rng, math.prod(l_shape[:-2]), m).reshape(l_shape)).to(cuda_device)
     B = torch.from_numpy(rng.standard_normal(b_shape).astype(np.float32)).to(cuda_device)
     L = L.expand(b_shape[:-2] + L.shape[-2:])
+    assert ts.uses_shared_memory(m, b_shape[-1]) == (m < 600)
     before = ts.launches
     X = ts.tri_solve_kernel(L, B, trans)
+    X2 = ts.tri_solve_kernel(L, B, trans)
     torch.cuda.synchronize()
-    assert ts.launches == before + 1
+    assert ts.launches == before + 2
+    assert torch.equal(X.view(torch.int32), X2.view(torch.int32))
     assert _rel(X, ts.tri_solve_plain(L, B, trans)) <= 1e-4
+    if len(l_shape) == 3 and l_shape[0] > 1:
+        Lbad = L.clone()
+        Lbad[0, m // 2, m // 2] = float("nan") if trans else 0.0
+        Xb = ts.tri_solve_kernel(Lbad, B, trans)
+        Xp = ts.tri_solve_plain(Lbad, B, trans)
+        torch.cuda.synchronize()
+        assert not torch.isfinite(Xb[0]).all() and not torch.isfinite(Xp[0]).all()
+        assert torch.equal(Xb[1:].view(torch.int32), X[1:].view(torch.int32))
 
 
-@pytest.mark.parametrize("shape", [(2, 200, 200), (2, 50, 50)])
-def test_cuda_tri_inverse_matches_plain(cuda_device, shape):
-    L = torch.from_numpy(_factor(np.random.default_rng(10), shape[0], shape[-1])).to(cuda_device)
-    L[0, 5, 5] = float("nan")  # a NaN pivot stays in its lane
+@pytest.mark.parametrize("pivot", [float("nan"), 0.0])
+@pytest.mark.parametrize("shape", [(2, 200, 200), (2, 50, 50), (2, 1, 1), (2, 31, 31),
+                                   (2, 33, 33), (2, 100, 100)])
+def test_cuda_tri_inverse_matches_plain(cuda_device, shape, pivot):
+    m = shape[-1]
+    L = torch.from_numpy(_factor(np.random.default_rng(10), shape[0], m)).to(cuda_device)
+    L[0, min(5, m - 1), min(5, m - 1)] = pivot  # a bad pivot stays in its lane
     Inv = ts.tri_inverse_kernel(L)
     torch.cuda.synchronize()
     assert not torch.isfinite(Inv[0]).all()
     assert _rel(Inv[1:], ts.tri_inverse_plain(L[1:])) <= 1e-4
     assert torch.count_nonzero(torch.triu(Inv[1:], 1)) == 0
+
+
+@pytest.mark.parametrize("scale_exp", [-80, 80])
+@pytest.mark.parametrize("m", [33, 50, 200, 600])
+def test_cuda_ieee_redo_matches_the_fast_path(cuda_device, m, scale_exp):
+    """Input scaled by 2^(+-80) puts the divisions' operands outside the
+    range of the branch-free fast paths (common.cuh div_rn), so the
+    Cholesky, the fused factor and the solves redo their steps with IEEE
+    operations. Scaling by a power of two is exact (every value stays
+    normal), so the results must be the unscaled ones scaled, bit for bit:
+    the fast path and the redo both round as IEEE division and square root.
+    At m = 600 the solve reads L from global memory."""
+    rng = np.random.default_rng(11)
+    A = torch.from_numpy(_spd(rng, 3, m)).to(cuda_device)
+    B = torch.from_numpy(rng.standard_normal((3, m, 33)).astype(np.float32)).to(cuda_device)
+    s, r = 2.0**scale_exp, 2.0 ** (scale_exp // 2)  # A's scale, and its factor's
+
+    def same(a, b):
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+    L = ch.cholesky_kernel(A)
+    assert same(ch.cholesky_kernel(A * s), L * r)
+    Lf, W = factor.cholesky_and_inverse_kernel(A)
+    Lfs, Ws = factor.cholesky_and_inverse_kernel(A * s)
+    assert same(Lfs, Lf * r) and same(Ws, W / r)
+    for trans in (False, True):
+        X = ts.tri_solve_kernel(L, B, trans)
+        assert same(ts.tri_solve_kernel(L * s, B * s, trans), X)
+    assert same(ts.tri_inverse_kernel(L * s), ts.tri_inverse_kernel(L) / s)
 
 
 # The quad-diag's forms on the path: data layer (S, N, m) with shared

@@ -23,6 +23,8 @@ import torch
 from spatial_alignment_tpu.models import core as jcore
 from spatial_alignment_tpu_torch import VariationalGPSA
 from spatial_alignment_tpu_torch.data import generate_twod_data
+from spatial_alignment_tpu_torch.models.params import init_params
+from spatial_alignment_tpu_torch.models.spec import build_spec, pack_batch, pack_coords
 
 from conftest import make_two_view_data
 from test_torch_model import _jit_value_and_grad, _rel, jax_noise, leaf, model_pair
@@ -85,6 +87,24 @@ def test_default_device_without_cuda_raises(monkeypatch):
     dd = make_two_view_data(n_per_view=12, n_outputs=2)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         VariationalGPSA(dd, m_X_per_view=4, m_G=4)
+
+
+def test_builders_default_to_the_card(monkeypatch):
+    """init_params, pack_coords and pack_batch build on the GPU unless asked
+    for the CPU: with no CUDA device and no device argument each raises."""
+    dd = make_two_view_data(n_per_view=12, n_outputs=2)
+    spec = build_spec(dd, m_X_per_view=4, m_G=4, fixed_view_idx=0)
+    coords = {"expression": dd["expression"]["spatial_coords"]}
+    builders = [lambda **kw: init_params(spec, dd, data_init=False, **kw)[0],
+                lambda **kw: pack_coords(spec, coords, **kw),
+                lambda **kw: pack_batch(spec, dd, **kw)["expression"]]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in builders:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build()
+        tree = build(device="cpu")
+        assert all(t.device.type == "cpu" for t in tree.values() if isinstance(t, torch.Tensor))
+        assert any(isinstance(t, torch.Tensor) for t in tree.values())
 
 
 @pytest.mark.parametrize(

@@ -126,7 +126,7 @@ def test_init_params_bit_identical(data_init):
     spec_j = jspec.build_spec(dd, **kw)
     spec_t = tspec.build_spec(dd, **kw)
     pj, cj, _ = jparams.init_params(spec_j, dd, data_init=data_init, seed=3)
-    pt, ct, _ = tparams.init_params(spec_t, dd, data_init=data_init, seed=3)
+    pt, ct, _ = tparams.init_params(spec_t, dd, data_init=data_init, seed=3, device="cpu")
     flat_j = dict(jax.tree_util.tree_flatten_with_path((pj, cj))[0])
     flat_t = dict(jax.tree_util.tree_flatten_with_path((_np_tree(pt), _np_tree(ct)))[0])
     assert flat_j.keys() == flat_t.keys()
