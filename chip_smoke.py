@@ -15,10 +15,11 @@ backward); and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
 ``set_gram_force(True)`` (cross-Gram kernel). Phases, one JSON line each:
 
   device     nvidia-smi name and power limit, torch / CUDA versions, TF32 flags
-  build      nvcc wall time, ptxas register / shared-memory report
+  build      nvcc wall time, ptxas registers, shared memory and spills a kernel
   parity     tiny model, and an m = 64 model with the opt-ins: loss and
              gradients on the card vs the CPU path
-  model_mb100k  construction of the 100k-spot model (host k-means included)
+  model_mb100k  construction of the 100k-spot model (host k-means included:
+             the mini-batch branch, above 20,000 points, seconds a call)
   mb100k_first_loss_draws  the 100k model's minibatch loss before training
              on three other draws: default route, forced Gram kernel, and
              float64 on the CPU
@@ -34,7 +35,9 @@ backward); and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
              memory); then trisolve, quad_fwd, quad_bwd and factor at every
              shape the opt-in fits give them (captured from one loss and
              gradient of each), on random well-conditioned input and on the
-             real inputs (trisolve and quad_fwd launched twice, bit-equal);
+             real inputs (trisolve, quad_fwd and quad_bwd launched twice,
+             bit-equal; the quad rows carry their design: tiles, splits,
+             cluster, and the 3xTF32 bound beside the fp32 one);
              then gram at every shape the forced 100k fits and predict() give
              it, for the three kernel kinds, against its plain version and
              the expansion form, with the bfloat16 store
@@ -683,6 +686,37 @@ def phase_kernels(device, real_inputs, peaks):
     return record, results, real
 
 
+def ptxas_report(log: str) -> dict:
+    """{kernel: registers, shared memory, stack and spill bytes} from nvcc's
+    ``-Xptxas -v`` output; a kernel is named by its function and the
+    integers of its template arguments (quad_bwd_tc_kernel<1,25>: the dF
+    kernel with 25 column tiles)."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", ln)
+        if entry:
+            name = re.search(r"\d([a-z_]+_kernel)(.*)", entry.group(1))
+            args = re.findall(r"L[a-z](\d+)E", name.group(2)) if name else []
+            cur = (name.group(1) if name else entry.group(1)) + (
+                f"<{','.join(args)}>" if args else "")
+            out[cur] = {}
+        elif cur is not None:
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", ln)
+            used = re.search(r"Used (\d+) registers", ln)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            if frame:
+                out[cur].update(stack=int(frame.group(1)), spill_stores=int(frame.group(2)),
+                                spill_loads=int(frame.group(3)))
+            if used:
+                out[cur]["registers"] = int(used.group(1))
+            if smem:
+                out[cur]["static_smem"] = int(smem.group(1))
+    return out
+
+
 def bit_equal(a, b) -> bool:
     """Equal bit for bit, NaN lanes included."""
     import torch
@@ -898,6 +932,7 @@ def phase_new_kernels(device, captured, peaks):
             Fr = 0.1 * torch.randn(F.shape, generator=gen, device=device)
             dyr = torch.randn(dy.shape, generator=gen, device=device)
             rk, rp = quad.quad_bwd_kernel(xr, Fr, dyr), quad.quad_bwd_plain(xr, Fr, dyr)
+            twice = [quad.quad_bwd_kernel(x, F, dy), quad.quad_bwd_kernel(xr, Fr, dyr)]
             torch.cuda.synchronize()
             rel_real = max(rel_err(dxk, dxp), rel_err(dFk, dFp))
             rel_rand = max(rel_err(rk[0], rp[0]), rel_err(rk[1], rp[1]))
@@ -907,12 +942,21 @@ def phase_new_kernels(device, captured, peaks):
                   "quad_bwd real: non-finite output")
             check(rel_real <= 1e-3, f"quad_bwd real {tuple(x.shape)}: rel {rel_real}")
             check(rel_rand <= 1e-4, f"quad_bwd random {tuple(x.shape)}: rel {rel_rand}")
-            b, by = bound_ms(4 * (2 * x.numel() + 2 * F.numel() + dy.numel()),
-                             6 * G * N * Lc * m * m, peaks)
+            check(all(bit_equal(a, b) for a, b in zip(twice[0] + twice[1], (dxk, dFk) + rk)),
+                  f"quad_bwd {tuple(x.shape)}: two launches differ")
+            # The work: t, dx and dF, three products of 2 G N L m^2, each in
+            # 3xTF32 (three TF32 passes) at the TF32 peak, as the forward's
+            # bound counts; the fp32 bound of the same three products beside.
+            n_bytes = 4 * (2 * x.numel() + 2 * F.numel() + dy.numel())
+            b, by = bound_ms(n_bytes, 3 * 3 * 2 * G * N * Lc * m * m, peaks, peaks[2])
+            b32, _ = bound_ms(n_bytes, 3 * 2 * G * N * Lc * m * m, peaks)
             rows["quad_bwd"].append({
                 "x": list(x.shape), "F": list(F.shape), "rel_vs_plain": rel_real,
                 "rel_vs_plain_random": rel_rand,
                 "max_abs_err": max(float((dxk - dxp).abs().max()), float((dFk - dFp).abs().max())),
+                "bit_equal_twice": True, "products": "3xTF32 mma.sync m16n8k8",
+                "design": quad.bwd_design(G, N, m, Lc, G if F.dim() == 4 else 1),
+                "cluster": 1, "bound_fp32_ms": b32,
                 "kernel_ms": median_ms(lambda: quad.quad_bwd_kernel(x, F, dy), n=30),
                 "plain_ms": median_ms(lambda: quad.quad_bwd_plain(x, F, dy), n=30),
                 "library_ms": None, "bound_ms": b, "bound_by": by})
@@ -1203,8 +1247,7 @@ def main() -> int:
     from spatial_alignment_tpu_torch.ops import _build
 
     seconds, logs = _build.build_all(verbose=True)
-    emit("build", seconds=seconds, ptxas={k: [ln for ln in v.splitlines() if "ptxas" in ln]
-                                          for k, v in logs.items()})
+    emit("build", seconds=seconds, ptxas={k: ptxas_report(v) for k, v in logs.items()})
 
     phase_parity(device)
 
@@ -1218,10 +1261,11 @@ def main() -> int:
     vim = [np.arange(nslm[0]), np.arange(nslm[0], sum(nslm))]
     kmeans_s, kmeans = [], params_mod.kmeans_centers
 
-    def timed_kmeans(*a, **kw):
+    def timed_kmeans(x, *a, **kw):
         t = time.perf_counter()
-        out = kmeans(*a, **kw)
-        kmeans_s.append(time.perf_counter() - t)
+        out = kmeans(x, *a, **kw)
+        kmeans_s.append({"points": len(x), "seconds": time.perf_counter() - t,
+                         "branch": "minibatch" if len(x) > 20_000 else "exact"})
         return out
 
     params_mod.kmeans_centers = timed_kmeans
@@ -1234,7 +1278,10 @@ def main() -> int:
         params_mod.kmeans_centers = kmeans
     model_mb_g = twin(model_mb)
     model_mb_gc = twin(model_mb, data_chunk_size=2048)
-    emit("model_mb100k", seconds=build_s, kmeans_seconds=kmeans_s, n_spots=sum(nslm),
+    check([k["branch"] for k in kmeans_s] == ["minibatch"] * 3,
+          f"the 100k model's k-means took {kmeans_s}, expected three mini-batch runs")
+    emit("model_mb100k", seconds=build_s, kmeans=kmeans_s,
+         kmeans_seconds=sum(k["seconds"] for k in kmeans_s), n_spots=sum(nslm),
          solve_mode=model_mb.spec.svgp_solve_mode, spec_data_chunk_size=[
              m.spec.data_chunk_size for m in (model_mb, model_mb_g, model_mb_gc)])
 

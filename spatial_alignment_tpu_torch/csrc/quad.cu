@@ -54,27 +54,64 @@
 // each output once. No atomics: two launches on the same input are
 // bit-equal.
 //
-// The backward keeps the first design: every kernel builds 64 x 64 tiles
-// of t the same way (t_tile), 256 threads, each holding a 4 x 4 register
-// tile on the plain fp32 pipes; x and F are staged through shared memory
-// 16 deep. Ragged edges are zero-filled, which is exact.
-//   quad_dx_kernel    grid (N/64, G): the block owns dx for its points over
-//                     256 columns at a time (64 accumulators a thread) and
-//                     loops over channels and k-tiles: t tile, w = 2 dy t to
-//                     shared memory, dx += w F_b[:, k-tile]^T.
-//   quad_df_kernel    grid (m/64, L, splits x factor groups): the block owns
-//                     a 256 x 64 block of dF_b (64 accumulators a thread)
-//                     for one contiguous range of rows, and for each 64 rows
-//                     makes the t tile, w, and adds x^T w. Blocks run in no
-//                     order, so each writes its partial sum, and
-//   quad_sum_kernel   adds the splits' partial sums in a fixed order. The
-//                     result does not depend on the schedule.
-// m above 256 loops over 256-column passes, making t again in each.
+// The backward, quad_bwd_tc_kernel (replaces _bwd_pallas / _bwd_body).
+// What bounds it: operations. t is a product of the forward's size, and dx
+// and dF are two more: 3 x 2 G N L m^2 (4.9e10 at the data layer, 0.73 ms on
+// the fp32 pipes); in 3xTF32 on the tensor cores, 0.30 ms at the TF32 peak.
+// Both outputs take the same shape of work, two chained products a chunk,
+// as attention does (S = Q K^T, P = f(S), O += P V):
 //
-// What bounds the backward: operations. It makes t twice and does two more
-// products of the size of the forward's, on the plain fp32 pipes.
+//   dx  (rows: 16 points a warp)   S = x F_b[:, c]     w = 2 dy[n] S   dx += w F_b[:, c]^T
+//   dF^T (rows: 16 columns k of F_b a warp)
+//                                  S^T = F_b[:, k]^T x[c, :]^T
+//                                  w^T = 2 dy[c] S^T   dF_b^T += w^T x[c, :]
+//
+// A block of 8 warps keeps its 128 rows' operand resident in shared memory
+// (x's rows for dx, a 128-column slab of F_b for dF) and streams chunks of 32
+// (columns k of one channel's F_b for dx; points for dF), three buffers deep
+// by cp.async (two where three do not fit, m > 200), one barrier a chunk;
+// 16-byte copies when m is a multiple of 4. Per chunk each warp makes its
+// 16 x 32 tile of t in registers (3xTF32 mma.sync m16n8k8, as the forward),
+// scales it by 2 dy in the epilogue, splits it once into TF32 high and low
+// parts, and feeds it, still in registers, as the A operand of the second
+// product into a 16 x m accumulator (up to m = 256, 128 registers). The
+// accumulator layout of an mma tile holds columns 2 tig and 2 tig + 1 where
+// an A fragment wants tig and tig + 4; the second product sums over those
+// columns, so it takes them in that order and reads its B operand (the same
+// chunk, transposed) as pairs of neighbours, one 8-byte load. Row strides of
+// x tiles = 4 mod 8 floats and of F tiles = 8 mod 16 keep every fragment load
+// on 32 banks. Edges are zero-filled by the copies (exact), so any m up to
+// 256 runs one code path; columns past m are computed and never stored, and
+// a chunk's column tiles past m (or past the points) are skipped in a second
+// copy of the chunk body, so that a full chunk has no condition around an
+// mma. Tried and dropped: 16 warps, each pair of warps splitting a row
+// group's accumulator and sharing w through shared memory (slower, and
+// spilling at m = 200); two accumulators for t's high and cross terms, and
+// fragments read a step ahead (slower: ptxas already schedules the unrolled
+// body).
+//   The sums over chunks run in a fixed order inside a block. To fill the
+// card, the chunks (channel, column block) of dx and the points of dF are
+// split over `splits` blocks, each writing its partial sum, and
+// quad_sum_kernel adds the partial sums in split order. The split counts
+// are chosen on the host from the occupancy the kernels get (fewest waves a
+// chunk of work). No atomics: two launches on the same input are bit-equal.
+// Making t once for both outputs would need a reduction of dx over channels
+// and column blocks and of dF over points in one pass: partial sums of dx
+// for every (channel, column block), 1.1 GB at the data layer, or float
+// atomics. So t is made twice, 4 products instead of 3.
+//
+// Above m = 256 the accumulator and the resident tile outgrow a block, and
+// the first design runs (the wide variant, off every path the repo runs):
+// 64 x 64 tiles of t on the plain fp32 pipes, 256 threads with a 4 x 4
+// register tile each, x and F staged 16 deep,
+//   quad_dx_kernel    grid (N/64, G): dx for the block's points over 256
+//                     columns a pass, looping over channels and k-tiles;
+//   quad_df_kernel    grid (m/64, L, splits x factor groups): a 256 x 64
+//                     block of dF_b over one range of rows (partial sums);
+//   quad_sum_kernel   adds the partial sums in a fixed order.
 
 #include <cooperative_groups.h>
+#include <algorithm>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -631,6 +668,324 @@ __global__ void quad_sum_kernel(const float* __restrict__ partial, float* __rest
   }
 }
 
+// ---- The backward: two chained 3xTF32 products a chunk. ----
+
+constexpr int BWARPS = 8;            // warps of a backward block
+constexpr int BTHREADS = BWARPS * 32;
+constexpr int BR = BWARPS * 16;      // rows of the resident tile, 16 a warp
+constexpr int BC = 32;               // depth of a chunk: columns of t (dx), points (dF)
+constexpr int BNT = BC / 8;          // mma column tiles of t in a chunk
+constexpr int BFD = BC + 8;          // padded row of dx's F chunk, = 8 mod 16
+constexpr int BFF = BR + 8;          // padded row of dF's F slab, = 8 mod 16
+constexpr int kMaxBwdM = 256;        // widest m of the tensor-core backward
+constexpr int kMaxBlockSmem = 232448;  // bytes of shared memory a block may have
+
+// NI mma column tiles of 8 cover the m columns of the accumulator: IP = 8 NI
+// >= m. x rows are padded to XS = IP + 4 floats (= 4 mod 8).
+template <bool DF, int NI>
+struct Bwd {
+  static constexpr int IP = NI * 8;
+  static constexpr int XS = IP + 4;
+  // The resident tile, then the chunk buffers, each followed by its 2 dy
+  // values (BR of them for dx: one per row; BC for dF: one per point):
+  // three when they fit in a block's shared memory (two chunks in flight
+  // while one is used), else two.
+  static constexpr int kResident = DF ? IP * BFF : BR * XS;
+  static constexpr int kChunk = (DF ? BC * XS : IP * BFD) + (DF ? BC : BR);
+  static constexpr int kStages = (kResident + 3 * kChunk) * 4 <= kMaxBlockSmem ? 3 : 2;
+  static constexpr size_t kSmem = (size_t)(kResident + kStages * kChunk) * sizeof(float);
+};
+
+// mma tiles of the second product issued together: independent accumulators
+// between two that depend on each other.
+constexpr int kGroup = 4;
+
+// One chunk for warp `warp`: s = A . B over depth m8 (BNT column tiles of
+// 8), w = 2 dy s, acc += w . B^T. A is the resident tile (dx: x [row][i],
+// ld XS; dF: F slab [i][row], ld BFF); B the chunk (dx: F chunk [i][c], ld
+// BFD; dF: x chunk [c][i], ld XS); dys the chunk's dy values. Only the
+// first `nv` column tiles of the chunk hold data (columns past m, points
+// past the range): FULL chunks (nv == BNT) run without a condition around
+// an mma, the last one skips the empty tiles.
+template <bool DF, int NI, bool FULL>
+__device__ __forceinline__ void bwd_chunk(const float* As, const float* Bs, const float* dys,
+                                          int m8, int nv, int warp, int gid, int tig,
+                                          float (&acc)[NI][4]) {
+  using T = Bwd<DF, NI>;
+  float s[BNT][4];
+#pragma unroll
+  for (int nt = 0; nt < BNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+  const int r = warp * 16 + gid;
+#pragma unroll 4
+  for (int kk = 0; kk < m8; kk += 8) {
+    float a[4], b[BNT][2];
+    if (DF) {
+      const float* p = As + (kk + tig) * BFF + r;
+      a[0] = p[0];
+      a[1] = p[8];
+      a[2] = p[4 * BFF];
+      a[3] = p[4 * BFF + 8];
+    } else {
+      const float* p = As + r * T::XS + kk + tig;
+      a[0] = p[0];
+      a[1] = p[8 * T::XS];
+      a[2] = p[4];
+      a[3] = p[8 * T::XS + 4];
+    }
+#pragma unroll
+    for (int nt = 0; nt < BNT; ++nt) {
+      if (DF) {
+        const float* q = Bs + (nt * 8 + gid) * T::XS + kk + tig;
+        b[nt][0] = q[0];
+        b[nt][1] = q[4];
+      } else {
+        const float* q = Bs + (kk + tig) * BFD + nt * 8 + gid;
+        b[nt][0] = q[0];
+        b[nt][1] = q[4 * BFD];
+      }
+    }
+    unsigned ahi[4], alo[4], bhi[BNT][2], blo[BNT][2];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(a[e], ahi[e], alo[e]);
+#pragma unroll
+    for (int nt = 0; nt < BNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) split_tf32(b[nt][e], bhi[nt][e], blo[nt][e]);
+#pragma unroll
+    for (int nt = 0; nt < BNT; ++nt)
+      if (FULL || nt < nv) mma_tf32(s[nt], alo, bhi[nt]);
+#pragma unroll
+    for (int nt = 0; nt < BNT; ++nt)
+      if (FULL || nt < nv) mma_tf32(s[nt], ahi, blo[nt]);
+#pragma unroll
+    for (int nt = 0; nt < BNT; ++nt)
+      if (FULL || nt < nv) mma_tf32(s[nt], ahi, bhi[nt]);
+  }
+  // w = 2 dy t. The tile's lane holds rows gid, gid + 8 and columns 2 tig,
+  // 2 tig + 1; as an A fragment of the second product, whose depth is those
+  // columns, they are taken in that order: a = (w[gid][2tig], w[gid+8][2tig],
+  // w[gid][2tig+1], w[gid+8][2tig+1]).
+  unsigned whi[BNT][4], wlo[BNT][4];
+#pragma unroll
+  for (int nt = 0; nt < BNT; ++nt) {
+    float w[4];
+    if (DF) {
+      const float d0 = 2.0f * dys[nt * 8 + 2 * tig];
+      const float d1 = 2.0f * dys[nt * 8 + 2 * tig + 1];
+      w[0] = d0 * s[nt][0];
+      w[1] = d0 * s[nt][2];
+      w[2] = d1 * s[nt][1];
+      w[3] = d1 * s[nt][3];
+    } else {
+      const float d0 = 2.0f * dys[r];
+      const float d1 = 2.0f * dys[r + 8];
+      w[0] = d0 * s[nt][0];
+      w[1] = d1 * s[nt][2];
+      w[2] = d0 * s[nt][1];
+      w[3] = d1 * s[nt][3];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(w[e], whi[nt][e], wlo[nt][e]);
+  }
+  // acc[:, i] += sum_c w[:, c] B[i][c]; B fragment of column tile ni, depth
+  // step j: (B[8 ni + gid][8 j + 2 tig], B[8 ni + gid][8 j + 2 tig + 1]).
+#pragma unroll
+  for (int j = 0; j < BNT; ++j) {
+    if (!FULL && j >= nv) break;
+#pragma unroll
+    for (int n0 = 0; n0 < NI; n0 += kGroup) {
+      unsigned bh[kGroup][2], bl[kGroup][2];
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) {
+        if (n0 + q < NI) {
+          const int i = (n0 + q) * 8 + gid;
+          float v0, v1;
+          if (DF) {
+            v0 = Bs[(j * 8 + 2 * tig) * T::XS + i];
+            v1 = Bs[(j * 8 + 2 * tig + 1) * T::XS + i];
+          } else {
+            const float2 v = *reinterpret_cast<const float2*>(Bs + i * BFD + j * 8 + 2 * tig);
+            v0 = v.x;
+            v1 = v.y;
+          }
+          split_tf32(v0, bh[q][0], bl[q][0]);
+          split_tf32(v1, bh[q][1], bl[q][1]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q)
+        if (n0 + q < NI) mma_tf32(acc[n0 + q], wlo[j], bh[q]);
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q)
+        if (n0 + q < NI) mma_tf32(acc[n0 + q], whi[j], bl[q]);
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q)
+        if (n0 + q < NI) mma_tf32(acc[n0 + q], whi[j], bh[q]);
+    }
+  }
+}
+
+// dx: grid (ceil(N / BR), splits, G). Block (tile, split, g) owns the BR
+// points tile * BR ... of group g and the chunks [j0, j1) of the L * nkc
+// (channel, column block) chunks, in order; it writes its partial sum of dx
+// to out + split * out_split. dF: grid (ceil(m / BR), L, splits * n_groups).
+// Block (kt, b, split * n_groups + fg) owns columns kt * BR ... of dF_b for
+// factor group fg over the flat rows [lo, hi) of x viewed as (G N, m) (the
+// group's rows, split in ranges of `per` chunks of BC), and writes its
+// partial sum to out + (split * n_groups + fg) * L m^2 + b m^2.
+template <bool DF, int NI, int VEC>
+__global__ void __launch_bounds__(BTHREADS, 1)
+quad_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ F,
+                   long long f_gstride, const float* __restrict__ dy, float* __restrict__ out,
+                   long long out_split, int N, int m, int L, int n_groups, long long rows_fg,
+                   int per) {
+  using T = Bwd<DF, NI>;
+  extern __shared__ float4 bwd_smem4[];
+  float* smem = reinterpret_cast<float*>(bwd_smem4);
+  float* As = smem;
+  const int tid = threadIdx.x;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int lane = tid % 32;
+  const int gid = lane / 4;
+  const int tig = lane % 4;
+  const int m8 = (m + 7) / 8 * 8;
+  const int nkc = (m + BC - 1) / BC;
+
+  // This block's work, and the operand that stays resident.
+  int g = 0, b = 0, fg = 0, split, n0 = 0, k0 = 0, nrows = 0, j0, j1;
+  long long lo = 0, hi = 0;
+  const float* Fb = F;
+  if (DF) {
+    k0 = blockIdx.x * BR;
+    b = blockIdx.y;
+    fg = blockIdx.z % n_groups;
+    split = blockIdx.z / n_groups;
+    lo = fg * rows_fg + (long long)split * per * BC;
+    hi = min(lo + (long long)per * BC, (fg + 1) * rows_fg);
+    j0 = 0;
+    j1 = hi > lo ? (int)((hi - lo + BC - 1) / BC) : 0;
+    Fb = F + fg * f_gstride + (size_t)b * m * m;
+    for (int t = tid; t < T::IP * BR / VEC; t += BTHREADS) {
+      const int i = t / (BR / VEC);
+      const int k = t % (BR / VEC) * VEC;
+      const bool ok = i < m && k0 + k < m;
+      cp_async<4 * VEC>(As + i * BFF + k, ok ? Fb + (size_t)i * m + k0 + k : Fb,
+                        ok ? 4 * VEC : 0);
+    }
+  } else {
+    n0 = blockIdx.x * BR;
+    split = blockIdx.y;
+    g = blockIdx.z;
+    nrows = min(BR, N - n0);
+    j0 = split * per;
+    j1 = min(j0 + per, L * nkc);
+    const float* xg = x + ((size_t)g * N + n0) * m;
+    for (int t = tid; t < BR * T::IP / VEC; t += BTHREADS) {
+      const int r = t / (T::IP / VEC);
+      const int i = t % (T::IP / VEC) * VEC;
+      const bool ok = r < nrows && i < m;
+      cp_async<4 * VEC>(As + r * T::XS + i, ok ? xg + (size_t)r * m + i : xg, ok ? 4 * VEC : 0);
+    }
+  }
+
+  // Stage chunk j into buffer `buf`.
+  auto load = [&](int j, int buf) {
+    float* Bs = smem + T::kResident + buf * T::kChunk;
+    float* ds = Bs + (DF ? BC * T::XS : T::IP * BFD);
+    if (DF) {
+      const long long r0 = lo + (long long)j * BC;
+      for (int t = tid; t < BC * T::IP / VEC; t += BTHREADS) {
+        const int c = t / (T::IP / VEC);
+        const int i = t % (T::IP / VEC) * VEC;
+        const bool ok = r0 + c < hi && i < m;
+        cp_async<4 * VEC>(Bs + c * T::XS + i, ok ? x + (size_t)(r0 + c) * m + i : x,
+                          ok ? 4 * VEC : 0);
+      }
+      if (tid < BC) {
+        const long long row = r0 + tid;  // flat row gq * N + point
+        const bool ok = row < hi;
+        const long long gq = ok ? row / N : 0;
+        const float* src = dy + (size_t)(gq * L + b) * N + (ok ? row - gq * N : 0);
+        cp_async<4>(ds + tid, src, ok ? 4 : 0);
+      }
+    } else {
+      const int bj = j / nkc;
+      const int c0 = (j - bj * nkc) * BC;
+      const float* Fj = F + g * f_gstride + (size_t)bj * m * m;
+      for (int t = tid; t < T::IP * BC / VEC; t += BTHREADS) {
+        const int i = t / (BC / VEC);
+        const int c = t % (BC / VEC) * VEC;
+        const bool ok = i < m && c0 + c < m;
+        cp_async<4 * VEC>(Bs + i * BFD + c, ok ? Fj + (size_t)i * m + c0 + c : Fj,
+                          ok ? 4 * VEC : 0);
+      }
+      if (tid < BR) {
+        const bool ok = tid < nrows;
+        const float* src = dy + ((size_t)g * L + bj) * N + n0 + (ok ? tid : 0);
+        cp_async<4>(ds + tid, src, ok ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[NI][4];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] = 0.0f;
+  // A warp whose 16 rows all lie past the edge only stages and waits.
+  const bool active = DF ? k0 + warp * 16 < m : warp * 16 < nrows;
+  constexpr int S = T::kStages;
+#pragma unroll
+  for (int q = 0; q < S - 1; ++q) {
+    if (j0 + q < j1) load(j0 + q, q);
+    cp_async_commit();
+  }
+  for (int j = j0; j < j1; ++j) {
+    cp_async_wait<S - 2>();
+    // Chunk j (and the resident tile) has landed for every thread, and every
+    // warp is done with chunk j - 1, whose buffer takes chunk j + S - 1.
+    __syncthreads();
+    if (j + S - 1 < j1) load(j + S - 1, (j + S - 1 - j0) % S);
+    cp_async_commit();
+    const float* Bs = smem + T::kResident + ((j - j0) % S) * T::kChunk;
+    // Column tiles of this chunk that hold data (columns < m; points < hi).
+    const int nv = DF ? (int)min((long long)BNT, (hi - lo - (long long)j * BC + 7) / 8)
+                      : min(BNT, (m - (j % nkc) * BC + 7) / 8);
+    const float* ds = Bs + (DF ? BC * T::XS : T::IP * BFD);
+    if (active && nv == BNT)
+      bwd_chunk<DF, NI, true>(As, Bs, ds, m8, nv, warp, gid, tig, acc);
+    else if (active)
+      bwd_chunk<DF, NI, false>(As, Bs, ds, m8, nv, warp, gid, tig, acc);
+  }
+  cp_async_wait<0>();
+
+  // Rows warp * 16 + gid (+ 8), columns 8 ni + 2 tig (+ 1) of the accumulator.
+  const int r = warp * 16 + gid;
+  if (DF) {
+    float* o = out + (size_t)(split * n_groups + fg) * out_split + (size_t)b * m * m;
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + r + (e >> 1) * 8;
+        const int i = ni * 8 + 2 * tig + (e & 1);
+        if (k < m && i < m) o[(size_t)i * m + k] = acc[ni][e];
+      }
+  } else {
+    float* o = out + (size_t)split * out_split + ((size_t)g * N + n0) * m;
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = r + (e >> 1) * 8;
+        const int i = ni * 8 + 2 * tig + (e & 1);
+        if (n < nrows && i < m) o[(size_t)n * m + i] = acc[ni][e];
+      }
+  }
+}
+
 template <class T>
 int cluster_size(int m) {
   const int tiles = (m + T::BN - 1) / T::BN;
@@ -687,6 +1042,176 @@ FwdChoice fwd_choice(int G, int N, int m, int L) {
 
 long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
+
+// The tensor-core backward's column tiles for m (0 above kMaxBwdM: the wide
+// variant). 25 covers m = 200 exactly.
+int bwd_ni(int m) {
+  if (m > kMaxBwdM) return 0;
+  const int c = (m + 7) / 8;
+  return c <= 8 ? 8 : c <= 16 ? 16 : c <= 25 ? 25 : 32;
+}
+
+// The fewest waves of blocks per unit of work: `base` blocks, each of whose
+// `items` chunks may be split over up to `cap` blocks, `slots` blocks
+// resident at once. A split is taken only where it saves 3 % or more.
+int pick_splits(long long base, long long items, long long slots, long long cap) {
+  const long long top = items < cap ? items : cap;
+  int best = 1;
+  double best_cost = (double)ceil_div(base, slots);
+  for (long long s = 2; s <= top; ++s) {
+    const double cost = (double)ceil_div(base * s, slots) / (double)s;
+    if (cost < 0.97 * best_cost) {
+      best = (int)s;
+      best_cost = cost;
+    }
+  }
+  // As many splits as the chunks a split takes need: none is left empty.
+  const long long per = ceil_div(items, best);
+  return (int)ceil_div(items, per);
+}
+
+// What the backward launches at these sizes.
+struct BwdPlan {
+  int ni = 0;                  // column tiles (0: the wide variant)
+  int occ_dx = 0, occ_df = 0;  // blocks an SM
+  int sx = 1, per_x = 0;       // dx: splits of the L * nkc chunks, chunks a split
+  int sf = 1, per_f = 0;       // dF: splits of a group's rows, chunks of BC a split
+  long long scratch_x = 0, scratch_f = 0;  // floats of partial sums
+  int err = 0;
+};
+
+constexpr long long kMaxPartialFloats = 1LL << 24;  // 64 MB of partial sums an output
+
+using BwdKernel = void (*)(const float*, const float*, long long, const float*, float*,
+                          long long, int, int, int, int, long long, int);
+
+template <int NI>
+void plan_tc(BwdPlan& p, int G, int N, int m, int L, int n_groups) {
+  using X = Bwd<false, NI>;
+  using D = Bwd<true, NI>;
+  const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+  // Both copy widths take the same shared memory.
+  const BwdKernel kernels[4] = {quad_bwd_tc_kernel<false, NI, 1>, quad_bwd_tc_kernel<false, NI, 4>,
+                                quad_bwd_tc_kernel<true, NI, 1>, quad_bwd_tc_kernel<true, NI, 4>};
+  cudaError_t e = cudaSuccess;
+  for (int k = 0; k < 4 && e == cudaSuccess; ++k)
+    e = cudaFuncSetAttribute(kernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(k < 2 ? X::kSmem : D::kSmem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.occ_dx, kernels[1], BTHREADS, X::kSmem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.occ_df, kernels[3], BTHREADS, D::kSmem);
+  if (e != cudaSuccess || sms <= 0 || p.occ_dx < 1 || p.occ_df < 1) {
+    p.err = e != cudaSuccess ? (int)e : (int)cudaErrorInvalidConfiguration;
+    return;
+  }
+  const long long items_x = (long long)L * ceil_div(m, BC);
+  const long long dx_floats = (long long)G * N * m;
+  p.sx = pick_splits(ceil_div(N, BR) * G, items_x, (long long)p.occ_dx * sms,
+                     std::max(1LL, std::min(64LL, kMaxPartialFloats / dx_floats)));
+  p.per_x = (int)ceil_div(items_x, p.sx);
+  p.scratch_x = p.sx > 1 ? p.sx * dx_floats : 0;
+  const long long rows_fg = (long long)G * N / n_groups;
+  const long long chunks = ceil_div(rows_fg, BC);
+  const long long df_floats = (long long)n_groups * L * m * m;
+  p.sf = pick_splits(ceil_div(m, BR) * L * n_groups, chunks, (long long)p.occ_df * sms,
+                     std::max(1LL, std::min(64LL, kMaxPartialFloats / df_floats)));
+  p.per_f = (int)ceil_div(chunks, p.sf);
+  p.scratch_f = p.sf > 1 ? p.sf * df_floats : 0;
+}
+
+// How many row ranges the wide variant's dF pass splits each factor group
+// into: enough blocks for about two per SM, never more than the group has
+// row tiles.
+int wide_splits(int G, int N, int m, int L, int n_groups) {
+  const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+  if (sms < 0) return -1;
+  const long long rows_fg = (long long)G * N / n_groups;
+  const long long blocks = ceil_div(m, TK) * L * n_groups;
+  long long s = (2LL * sms) / blocks;
+  s = s < 1 ? 1 : s;
+  const long long tiles = ceil_div(rows_fg, TN);
+  return (int)(s < tiles ? s : tiles);
+}
+
+BwdPlan bwd_plan(int G, int N, int m, int L, int n_groups) {
+  BwdPlan p;
+  p.ni = bwd_ni(m);
+  switch (p.ni) {
+    case 8: plan_tc<8>(p, G, N, m, L, n_groups); break;
+    case 16: plan_tc<16>(p, G, N, m, L, n_groups); break;
+    case 25: plan_tc<25>(p, G, N, m, L, n_groups); break;
+    case 32: plan_tc<32>(p, G, N, m, L, n_groups); break;
+    default: {
+      const int s = wide_splits(G, N, m, L, n_groups);
+      if (s < 1) {
+        p.err = (int)cudaErrorInvalidDevice;
+        break;
+      }
+      p.sf = s;
+      p.scratch_f = (long long)s * n_groups * L * m * m;
+    }
+  }
+  return p;
+}
+
+int launch_sum(const float* partial, float* out, long long total, int splits, cudaStream_t s) {
+  const long long nb = ceil_div(total, kThreads);
+  quad_sum_kernel<<<(unsigned)(nb < 4096 ? nb : 4096), kThreads, 0, s>>>(partial, out, total,
+                                                                          splits);
+  return (int)cudaGetLastError();
+}
+
+template <int NI>
+int launch_bwd_tc(const BwdPlan& p, const float* x, const float* F, long long f_gstride,
+                  const float* dy, float* dx, float* dF, float* scratch, int G, int N, int m,
+                  int L, int n_groups, cudaStream_t s) {
+  const long long dx_floats = (long long)G * N * m;
+  const long long df_floats = (long long)n_groups * L * m * m;
+  float* px = p.sx > 1 ? scratch : dx;
+  float* pf = p.sf > 1 ? scratch + p.scratch_x : dF;
+  // 16-byte copies where every row of x and F starts on 16 bytes.
+  const bool vec4 = m % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)F % 16 == 0;
+  const BwdKernel kx = vec4 ? quad_bwd_tc_kernel<false, NI, 4> : quad_bwd_tc_kernel<false, NI, 1>;
+  const BwdKernel kf = vec4 ? quad_bwd_tc_kernel<true, NI, 4> : quad_bwd_tc_kernel<true, NI, 1>;
+  dim3 gx((unsigned)ceil_div(N, BR), (unsigned)p.sx, (unsigned)G);
+  kx<<<gx, BTHREADS, Bwd<false, NI>::kSmem, s>>>(x, F, f_gstride, dy, px, dx_floats, N, m, L,
+                                                n_groups, 0, p.per_x);
+  int e = (int)cudaGetLastError();
+  if (e == 0 && p.sx > 1) e = launch_sum(px, dx, dx_floats, p.sx, s);
+  if (e != 0) return e;
+  dim3 gf((unsigned)ceil_div(m, BR), (unsigned)L, (unsigned)(p.sf * n_groups));
+  kf<<<gf, BTHREADS, Bwd<true, NI>::kSmem, s>>>(x, F, f_gstride, dy, pf, (long long)L * m * m, N,
+                                               m, L, n_groups, (long long)G * N / n_groups,
+                                               p.per_f);
+  e = (int)cudaGetLastError();
+  if (e == 0 && p.sf > 1) e = launch_sum(pf, dF, df_floats, p.sf, s);
+  return e;
+}
+
+int launch_bwd_wide(const BwdPlan& p, const float* x, const float* F, long long f_gstride,
+                    const float* dy, float* dx, float* dF, float* partial, int G, int N, int m,
+                    int L, int n_groups, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      quad_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDxSmem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(quad_df_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kDfSmem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 gdx((unsigned)ceil_div(N, TN), (unsigned)G);
+  quad_dx_kernel<<<gdx, kThreads, kDxSmem, s>>>(x, F, f_gstride, dy, dx, N, m, L);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long rows_fg = (long long)G * N / n_groups;
+  const long long per_split = ceil_div(ceil_div(rows_fg, TN), p.sf) * TN;
+  dim3 gdf((unsigned)ceil_div(m, TK), (unsigned)L, (unsigned)(p.sf * n_groups));
+  quad_df_kernel<<<gdf, kThreads, kDfSmem, s>>>(x, F, f_gstride, dy, partial, N, m, L,
+                                                n_groups, rows_fg, per_split);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_sum(partial, dF, (long long)n_groups * L * m * m, p.sf, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -708,20 +1233,6 @@ int sat_quad_fwd_cluster(int G, int N, int m, int L) {
   return c == kLarge    ? cluster_size<FwdLarge>(m)
          : c == kMedium ? cluster_size<FwdMedium>(m)
                         : cluster_size<FwdSmall>(m);
-}
-
-// How many row ranges the dF pass splits each factor group into: enough
-// blocks for about two per SM, never more than the group has row tiles.
-// `n_groups` is 1 for shared factors and G for one set per group.
-int sat_quad_bwd_splits(int G, int N, int m, int L, int n_groups) {
-  const int sms = device_attr(cudaDevAttrMultiProcessorCount);
-  if (sms < 0) return -1;
-  const long long rows_fg = (long long)G * N / n_groups;
-  const long long blocks = ceil_div(m, TK) * L * n_groups;
-  long long s = (2LL * sms) / blocks;
-  s = s < 1 ? 1 : s;
-  const long long tiles = ceil_div(rows_fg, TN);
-  return (int)(s < tiles ? s : tiles);
 }
 
 // x (G, N, m), point n, depth i of group g at x[g * x_gstride + n * x_nstride
@@ -756,43 +1267,48 @@ int sat_quad_fwd_f32(const void* x, const void* F, long long f_gstride, void* ou
                                   stream);
 }
 
-// The backward: dy (G, L, N) in, dx (G, N, m) and dF (F's shape) out.
-// `partial` is scratch of splits * n_groups * L * m * m floats, `splits`
-// from sat_quad_bwd_splits. Three launches on `stream` (dx, dF partial sums,
-// their sum); returns the first launch error (0 = all launched).
+// The backward's design at these sizes, into out[8]: column tiles of the
+// tensor-core kernels (0: the wide variant), rows of a block, chunk depth,
+// blocks an SM of the dx and the dF kernel, splits of dx's chunks and of
+// dF's rows (each > 1 adds a fixed-order sum), and the floats of scratch
+// the backward needs. Returns 0, or the CUDA error of the queries.
+int sat_quad_bwd_design(int G, int N, int m, int L, int n_groups, long long* out) {
+  const BwdPlan p = bwd_plan(G, N, m, L, n_groups);
+  if (p.err != 0) return p.err;
+  const long long v[8] = {p.ni, p.ni ? BR : TN, p.ni ? BC : TK, p.occ_dx, p.occ_df, p.sx, p.sf,
+                          p.scratch_x + p.scratch_f};
+  for (int k = 0; k < 8; ++k) out[k] = v[k];
+  return 0;
+}
+
+// The backward: dy (G, L, N) in, dx (G, N, m) and dF (F's shape) out, x and
+// F as for the forward (x contiguous). `scratch` holds the floats
+// sat_quad_bwd_design reports for the same sizes (may be null when that is
+// 0). Two to four launches on `stream`; returns the first launch error (0 =
+// all launched).
 int sat_quad_bwd_f32(const void* x, const void* F, long long f_gstride, const void* dy,
-                     void* dx, void* dF, void* partial, int G, int N, int m, int L,
-                     int n_groups, int splits, void* stream) {
+                     void* dx, void* dF, void* scratch, int G, int N, int m, int L,
+                     int n_groups, void* stream) {
   if (G <= 0 || N <= 0 || m <= 0 || L <= 0) return 0;
-  if (L > 65535 || G > 65535 || splits < 1 || n_groups < 1 ||
-      (long long)splits * n_groups > 65535)
+  if (L > 65535 || G > 65535 || n_groups < 1 || G % n_groups != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaFuncSetAttribute(
-      quad_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDxSmem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(quad_df_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kDfSmem);
-  if (e != cudaSuccess) return (int)e;
+  const BwdPlan p = bwd_plan(G, N, m, L, n_groups);
+  if (p.err != 0) return p.err;
+  if ((long long)p.sf * n_groups > 65535) return (int)cudaErrorInvalidValue;
   const float* xf = (const float*)x;
   const float* Ff = (const float*)F;
   const float* dyf = (const float*)dy;
-  dim3 gdx((unsigned)ceil_div(N, TN), (unsigned)G);
-  quad_dx_kernel<<<gdx, kThreads, kDxSmem, s>>>(xf, Ff, f_gstride, dyf, (float*)dx, N, m, L);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long rows_fg = (long long)G * N / n_groups;
-  const long long per_split = ceil_div(ceil_div(rows_fg, TN), splits) * TN;
-  dim3 gdf((unsigned)ceil_div(m, TK), (unsigned)L, (unsigned)(splits * n_groups));
-  quad_df_kernel<<<gdf, kThreads, kDfSmem, s>>>(xf, Ff, f_gstride, dyf, (float*)partial, N,
-                                                m, L, n_groups, rows_fg, per_split);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long total = (long long)n_groups * L * m * m;
-  const long long nb = ceil_div(total, kThreads);
-  quad_sum_kernel<<<(unsigned)(nb < 4096 ? nb : 4096), kThreads, 0, s>>>(
-      (const float*)partial, (float*)dF, total, splits);
-  return (int)cudaGetLastError();
+  float* dxf = (float*)dx;
+  float* dFf = (float*)dF;
+  float* sc = (float*)scratch;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (p.ni) {
+    case 8: return launch_bwd_tc<8>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
+    case 16: return launch_bwd_tc<16>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
+    case 25: return launch_bwd_tc<25>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
+    case 32: return launch_bwd_tc<32>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
+    default: return launch_bwd_wide(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
+  }
 }
 
 }  // extern "C"

@@ -10,8 +10,10 @@ Every leaf is drawn host-side from ``np.random.default_rng(seed)`` in the
 same order as the JAX package, so for the same seed the leaves are
 bit-identical. The one exception is the k-means inducing-point init: the
 JAX package calls sklearn, which the port does not depend on, so
-:func:`kmeans_centers` is a seeded numpy k-means++ plus Lloyd of its own.
-Its centres differ from sklearn's; its inertia is of the same quality.
+:func:`kmeans_centers` is seeded numpy of its own with the JAX package's
+two branches: k-means++ plus Lloyd (sklearn's ``KMeans``) up to 20,000
+points, mini-batch k-means (sklearn's ``MiniBatchKMeans``) above. Its
+centres differ from sklearn's; its inertia is of the same quality.
 """
 
 from __future__ import annotations
@@ -71,21 +73,109 @@ def _lloyd(x, centers, max_iter=300, tol=1e-4):
     return centers, float(d.min(axis=1).sum())
 
 
-def kmeans_centers(x: np.ndarray, k: int, seed: int, n_init: int = 10) -> np.ndarray:
-    """k cluster centres of the rows of x (best inertia of ``n_init`` seeded
-    k-means++ + Lloyd runs), as float32. With no more points than k, the
-    points are tiled, as in the JAX package."""
+def _inertia(x: np.ndarray, centers: np.ndarray) -> float:
+    return float(_sq_dists(x, centers).min(axis=1).sum())
+
+
+# The JAX package's MiniBatchKMeans settings (n_init, batch_size) and
+# sklearn's defaults for the rest.
+_MB_N_INIT = 3
+_MB_BATCH = 4096
+_MB_MAX_ITER = 100
+_MB_MAX_NO_IMPROVEMENT = 10
+_MB_REASSIGNMENT_RATIO = 0.01
+
+
+def _minibatch_kmeans(x: np.ndarray, k: int, rng: np.random.Generator) -> np.ndarray:
+    """Mini-batch k-means, the algorithm of sklearn's ``MiniBatchKMeans.fit``
+    (tol 0, unit weights): the best of ``_MB_N_INIT`` k-means++ seedings on
+    random subsets of 3 ``_MB_BATCH`` points, by inertia on one more such
+    subset; then batches drawn with replacement, each centre moved to the
+    running mean of the points it was ever given, centres with under
+    ``_MB_REASSIGNMENT_RATIO`` of the largest count moved to random batch
+    points (every 10 k points seen, or while a centre has none), and a stop
+    after ``_MB_MAX_NO_IMPROVEMENT`` steps without a new low of the smoothed
+    batch inertia."""
+    n = x.shape[0]
+    batch = min(_MB_BATCH, n)
+    init_size = min(max(3 * batch, 3 * k), n)
+    valid = x[rng.integers(0, n, init_size)]
+    best = None
+    for _ in range(_MB_N_INIT):
+        centers = _kmeanspp(x[rng.integers(0, n, init_size)], k, rng)
+        inertia = _inertia(valid, centers)
+        if best is None or inertia < best[1]:
+            best = (centers, inertia)
+    centers = best[0]
+    counts = np.zeros(k)
+    ewa = ewa_min = None
+    no_improvement = since_reassign = 0
+    alpha = min(batch * 2.0 / (n + 1), 1.0)
+    for step in range(_MB_MAX_ITER * n // batch):
+        xb = x[rng.integers(0, n, batch)]
+        # Reassign this step every 10 k points seen, or while a centre has
+        # never been given a point.
+        since_reassign += batch
+        reassign = bool((counts == 0).any()) or since_reassign >= 10 * k
+        if reassign:
+            since_reassign = 0
+        d = _sq_dists(xb, centers)
+        labels = d.argmin(axis=1)
+        batch_inertia = float(d[np.arange(batch), labels].sum()) / batch
+        # Running means: c <- (c * count + sum of its batch points) / new count.
+        sums = np.zeros_like(centers)
+        np.add.at(sums, labels, xb)
+        got = np.bincount(labels, minlength=k).astype(np.float64)
+        hit = got > 0
+        new = centers.copy()
+        new[hit] = (centers[hit] * counts[hit, None] + sums[hit]) / (counts[hit] + got[hit])[:, None]
+        counts += got
+        if reassign:
+            low = counts < _MB_REASSIGNMENT_RATIO * counts.max()
+            if low.sum() > 0.5 * batch:  # at most half a batch of new centres
+                low[np.argsort(counts)[int(0.5 * batch):]] = False
+            if low.any():
+                new[low] = xb[rng.choice(batch, size=int(low.sum()), replace=False)]
+                counts[low] = counts[~low].min()
+        centers = new
+        if step == 0:  # the first batch measures the seeding, not a step
+            continue
+        ewa = batch_inertia if ewa is None else ewa * (1 - alpha) + batch_inertia * alpha
+        if ewa_min is None or ewa < ewa_min:
+            no_improvement, ewa_min = 0, ewa
+        else:
+            no_improvement += 1
+            if no_improvement >= _MB_MAX_NO_IMPROVEMENT:
+                break
+    return centers
+
+
+def _exact_kmeans(x: np.ndarray, k: int, rng: np.random.Generator) -> np.ndarray:
+    """Best inertia of 10 k-means++ + Lloyd runs over every point (the JAX
+    package's ``KMeans(n_init=10)``)."""
+    best = None
+    for _ in range(10):
+        centers, inertia = _lloyd(x, _kmeanspp(x, k, rng))
+        if best is None or inertia < best[1]:
+            best = (centers, inertia)
+    return best[0]
+
+
+def kmeans_centers(x: np.ndarray, k: int, seed: int) -> np.ndarray:
+    """k cluster centres of the rows of x, as float32, seeded by ``seed``.
+    As in the JAX package: with no more points than k, the points tiled;
+    above 20,000 points, mini-batch k-means (3 seedings, batches of 4,096);
+    else the best of 10 k-means++ + Lloyd runs."""
     if x.shape[0] <= k:
         reps = -(-k // x.shape[0])
         return np.tile(x, (reps, 1))[:k]
     xd = np.asarray(x, np.float64)
     rng = np.random.default_rng(seed)
-    best = None
-    for _ in range(n_init):
-        centers, inertia = _lloyd(xd, _kmeanspp(xd, k, rng))
-        if best is None or inertia < best[1]:
-            best = (centers, inertia)
-    return best[0].astype(np.float32)
+    if x.shape[0] > 20_000:
+        centers = _minibatch_kmeans(xd, k, rng)
+    else:
+        centers = _exact_kmeans(xd, k, rng)
+    return centers.astype(np.float32)
 
 
 def init_inducing(

@@ -142,9 +142,9 @@ def check_supported(spec: ModelSpec) -> None:
     """Raise NotImplementedError for spec options the port does not have yet,
     naming the ROADMAP.md item that ports each."""
     unsupported = [
-        (spec.triangular_variational, "triangular_variational=True", "queue A item 10"),
-        (spec.whitened_variational, "whitened_variational=True", "queue A item 10"),
-        (not spec.merged_factor_dispatch, "merged_factor_dispatch=False", "queue A item 14"),
+        (spec.triangular_variational, "triangular_variational=True", "A6"),
+        (spec.whitened_variational, "whitened_variational=True", "A6"),
+        (not spec.merged_factor_dispatch, "merged_factor_dispatch=False", "A10"),
     ]
     for bad, what, item in unsupported:
         if bad:

@@ -253,7 +253,7 @@ class VariationalGPSA:
         """
         del Ns, prediction_mode
         if G_test is not None:
-            raise _not_ported("forward(G_test=...) imputation", "queue A item 10")
+            raise _not_ported("forward(G_test=...) imputation", "A6")
         if view_idx is None:
             view_idx = self.view_idx
         spec = self._eval_spec(view_idx)
@@ -383,9 +383,9 @@ class VariationalGPSA:
         minibatch estimates.
         """
         if resume_from is not None:
-            raise _not_ported("fit(resume_from=...)", "queue A item 6")
+            raise _not_ported("fit(resume_from=...)", "A2")
         if optimizer is not None:
-            raise _not_ported("fit(optimizer=...)", "queue A item 6")
+            raise _not_ported("fit(optimizer=...)", "A2")
         if recipe not in (None, "plain", "accurate"):
             raise ValueError(f"unknown recipe {recipe!r}")
         if self._batch is None:
@@ -445,7 +445,7 @@ class VariationalGPSA:
 
     def fit_multistart(self, *args, **kwargs):
         """Not ported yet; raises."""
-        raise _not_ported("fit_multistart", "queue A item 9")
+        raise _not_ported("fit_multistart", "A5")
 
 
 def _map_pair(fn, a, b):

@@ -7,7 +7,10 @@ Replaces ``spatial_alignment_tpu/ops/pallas_quad.py:quad_diag`` (forward
 ``_fwd_pallas``, backward ``_bwd_pallas``). Like the TPU kernels, the CUDA
 kernels (``csrc/quad.cu``, design and bound in its header) never write the
 (..., L, N, m) product to device memory, and the backward makes it again
-tile by tile instead of saving it. ``models.core`` sends a quad-diag here
+tile by tile instead of saving it. Both run on the tensor cores in 3xTF32;
+the backward's dx and dF passes each make t and feed it, in registers, to
+their second product, their chunks split over blocks whose partial sums are
+added in a fixed order (:func:`bwd_design` reports the split). ``models.core`` sends a quad-diag here
 only under ``quad_diag_impl="pallas"``; otherwise it runs
 :func:`quad_diag_plain` and autograd, as the JAX package's ``xla`` route.
 
@@ -23,14 +26,15 @@ or raises, a CPU tensor takes the plain forward and the plain backward
 back from one to the other. Everything is float32.
 
 Counters: ``fwd_launches`` and ``bwd_launches`` count kernel launches of the
-forward and of the backward (one backward call launches its three kernels
-and counts once); ``plain_calls`` counts forward and backward calls that
+forward and of the backward (one backward call launches its two to four
+kernels and counts once); ``plain_calls`` counts forward and backward calls that
 took the plain version because their tensors lay on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -59,10 +63,10 @@ def _library() -> ctypes.CDLL:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.sat_quad_fwd_strided_f32.argtypes = [vp, ll, ll, ll, vp, ll, vp, i, i, i, i, vp]
         lib.sat_quad_fwd_strided_f32.restype = i
-        lib.sat_quad_bwd_f32.argtypes = [vp, vp, ll, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        lib.sat_quad_bwd_f32.argtypes = [vp, vp, ll, vp, vp, vp, vp, i, i, i, i, i, vp]
         lib.sat_quad_bwd_f32.restype = i
-        lib.sat_quad_bwd_splits.argtypes = [i, i, i, i, i]
-        lib.sat_quad_bwd_splits.restype = i
+        lib.sat_quad_bwd_design.argtypes = [i, i, i, i, i, ctypes.POINTER(ll)]
+        lib.sat_quad_bwd_design.restype = i
         _lib = lib
     return _lib
 
@@ -140,26 +144,44 @@ def quad_bwd_kernel(x: torch.Tensor, F: torch.Tensor, dy: torch.Tensor):
     if dx.numel() == 0 or dF.numel() == 0:
         return dx.zero_(), dF.zero_()
     x, F, dy = x.contiguous(), F.contiguous(), dy.contiguous()
-    lib = _library()
     n_groups = G if per_group else 1
     with torch.cuda.device(x.device):
-        splits = lib.sat_quad_bwd_splits(G, N, m, L, n_groups)
-        if splits < 1:
-            raise RuntimeError("could not query the device's SM count")
-        partial = torch.empty((splits, n_groups, L, m, m), dtype=x.dtype, device=x.device)
+        design = bwd_design(G, N, m, L, n_groups)
+        scratch = torch.empty((design["scratch_floats"],), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.sat_quad_bwd_f32(
+        err = _library().sat_quad_bwd_f32(
             x.data_ptr(), F.data_ptr(), L * m * m if per_group else 0, dy.data_ptr(),
-            dx.data_ptr(), dF.data_ptr(), partial.data_ptr(),
-            G, N, m, L, n_groups, splits, stream,
+            dx.data_ptr(), dF.data_ptr(), scratch.data_ptr(), G, N, m, L, n_groups, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"quad backward kernel launch failed with CUDA error {err} "
-            f"(G={G}, N={N}, m={m}, L={L}, splits={splits})"
+            f"(G={G}, N={N}, m={m}, L={L}, design={design})"
         )
     bwd_launches += 1
     return dx, dF
+
+
+_DESIGN_KEYS = ("column_tiles", "block_rows", "chunk", "blocks_per_sm_dx", "blocks_per_sm_df",
+                "splits_dx", "splits_df", "scratch_floats")
+
+
+@functools.lru_cache(maxsize=None)
+def _design(device_index: int, G: int, N: int, m: int, L: int, n_groups: int) -> tuple:
+    out = (ctypes.c_longlong * len(_DESIGN_KEYS))()
+    err = _library().sat_quad_bwd_design(G, N, m, L, n_groups, out)
+    if err != 0:
+        raise RuntimeError(f"quad backward design query failed with CUDA error {err}")
+    return tuple(int(v) for v in out)
+
+
+def bwd_design(G: int, N: int, m: int, L: int, n_groups: int) -> dict:
+    """What the backward launches at these sizes on the current device
+    (``csrc/quad.cu``): its column tiles (0 above m = 256, the wide
+    variant), block rows, chunk depth, blocks per SM, splits of dx and of
+    dF (each above 1 adds a fixed-order sum) and the floats of scratch."""
+    values = _design(torch.cuda.current_device(), G, N, m, L, n_groups)
+    return dict(zip(_DESIGN_KEYS, values))
 
 
 def quad_bwd_plain(x: torch.Tensor, F: torch.Tensor, dy: torch.Tensor):

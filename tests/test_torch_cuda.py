@@ -261,19 +261,25 @@ def test_cuda_ieee_redo_matches_the_fast_path(cuda_device, m, scale_exp):
 # (L, m, m), warp layer (V, N, m) with per-view (V, D, m, m), the m = 50
 # fit's warp layer; then ragged shapes across the forward's 64-point and
 # 64-column tiles and its depth stages of 32 (m = 37 and 50 are not
-# multiples of 4 or 8: 4-byte copies, zero-filled edges), per group.
+# multiples of 4 or 8: 4-byte copies, zero-filled edges), per group; the
+# backward's 128-row blocks and 32-deep chunks (N = 130, m = 37 and 200
+# end inside a chunk), each of its column-tile widths (m up to 64, 128,
+# 200 and 256), an odd channel count, and m = 300, past the tensor-core
+# backward's widest m (the wide variant).
 _QUADS = [((5, 8100, 200), (10, 200, 200)), ((1, 4050, 200), (1, 2, 200, 200)),
           ((5, 200, 50), (30, 50, 50)), ((1, 100, 50), (1, 2, 50, 50)),
           ((3, 130, 37), (3, 1, 37, 37)), ((3, 4050, 37), (3, 1, 37, 37)),
           ((3, 130, 50), (3, 1, 50, 50)), ((3, 4050, 200), (3, 1, 200, 200)),
-          ((3, 130, 200), (3, 1, 200, 200))]
+          ((3, 130, 200), (3, 1, 200, 200)), ((2, 333, 129), (3, 129, 129)),
+          ((2, 333, 256), (3, 256, 256)), ((2, 77, 300), (3, 300, 300)),
+          ((3, 130, 301), (3, 3, 301, 301))]
 
 
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("x_shape,f_shape", _QUADS)
 def test_cuda_quad_matches_plain(cuda_device, x_shape, f_shape, transposed):
-    """Forward (3xTF32 tensor cores) and backward against the plain
-    versions, and two forward launches on the same input bit-equal; x by
+    """Forward and backward (3xTF32 tensor cores) against the plain
+    versions, and two launches of each on the same input bit-equal; x by
     rows, or a transposed view as the model passes it (read in place)."""
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).to(cuda_device)
@@ -287,9 +293,12 @@ def test_cuda_quad_matches_plain(cuda_device, x_shape, f_shape, transposed):
     y = quad.quad_fwd_kernel(x, F)
     y2 = quad.quad_fwd_kernel(x, F)
     dx, dF = quad.quad_bwd_kernel(x, F, dy)
+    dx2, dF2 = quad.quad_bwd_kernel(x, F, dy)
     torch.cuda.synchronize()
-    assert (quad.fwd_launches, quad.bwd_launches) == (f0 + 2, b0 + 1)
+    assert (quad.fwd_launches, quad.bwd_launches) == (f0 + 2, b0 + 2)
     assert torch.equal(y, y2)
+    assert torch.equal(dx.view(torch.int32), dx2.view(torch.int32))
+    assert torch.equal(dF.view(torch.int32), dF2.view(torch.int32))
     assert _rel(y, quad.quad_diag_plain(x, F)) <= 1e-4
     dx_p, dF_p = quad.quad_bwd_plain(x, F, dy)
     assert _rel(dx, dx_p) <= 1e-4

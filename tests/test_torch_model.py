@@ -155,6 +155,44 @@ def test_kmeans_inertia_close_to_sklearn():
     assert inertia(ours) <= 1.2 * inertia(theirs)
 
 
+def test_minibatch_kmeans_inertia_close_to_sklearn():
+    """Above 20,000 points the port runs mini-batch k-means, as the JAX
+    package runs sklearn's MiniBatchKMeans(n_init=3, batch_size=4096); its
+    inertia lands within 1.2x of sklearn's on the same points."""
+    from sklearn.cluster import MiniBatchKMeans
+
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.normal(c, 0.4, (1200, 2)) for c in rng.uniform(0, 20, (20, 2))])
+    x = x.astype(np.float32)
+    assert x.shape[0] > 20_000
+    inertia = lambda c: float(((x[:, None] - c[None]) ** 2).sum(-1).min(1).sum())
+    ours = tparams.kmeans_centers(x, 20, seed=0)
+    theirs = MiniBatchKMeans(n_clusters=20, n_init=3, batch_size=4096, random_state=0)
+    theirs = theirs.fit(x).cluster_centers_
+    assert ours.shape == (20, 2) and ours.dtype == np.float32
+    assert inertia(ours) <= 1.2 * inertia(theirs)
+
+
+@pytest.mark.parametrize("n,branch", [(20_000, "exact"), (20_001, "minibatch")])
+def test_kmeans_branch_by_point_count(monkeypatch, n, branch):
+    """The JAX package's threshold: mini-batch k-means above 20,000 points,
+    the exact k-means at or below."""
+    calls = []
+
+    def spy(name):
+        def run(x, k, rng, **kw):
+            calls.append((name, x.shape[0]))
+            return x[:k]
+
+        return run
+
+    monkeypatch.setattr(tparams, "_exact_kmeans", spy("exact"))
+    monkeypatch.setattr(tparams, "_minibatch_kmeans", spy("minibatch"))
+    x = np.random.default_rng(0).random((n, 2)).astype(np.float32)
+    tparams.kmeans_centers(x, 5, seed=0)
+    assert calls == [(branch, n)]
+
+
 # ---------------------------------------------------------------------------
 # loss and gradients
 # ---------------------------------------------------------------------------

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Hold the Cholesky, fused-factor and triangular-solve CUDA kernels of this
-checkout against an earlier checkout's on one GPU: the same results bit for
-bit, and their times in turns.
+"""Hold the Cholesky, fused-factor, triangular-solve and quad-diag backward
+CUDA kernels of this checkout against an earlier checkout's on one GPU: the
+same results bit for bit (the quad backward: each against its plain
+version), and their times in turns.
 
     python3 tools/kernel_probe.py --parent DIR [--out FILE]
 
 DIR is an earlier checkout, e.g. unpacked with
 ``git archive <rev> spatial_alignment_tpu_torch/csrc | tar -x -C DIR``.
-Builds both checkouts' csrc/{cholesky,factor,trisolve}.cu with the flags of
-``spatial_alignment_tpu_torch/ops/_build.py`` and runs them on the same
-inputs at the shapes of the fits' paths. It raises when the two differ in
-any bit: these kernels' rounding is part of their contract (the header of
-csrc/common.cuh). Then it times each in turns (parent, this, this, parent)
+Builds both checkouts' csrc/{cholesky,factor,trisolve,quad}.cu with the
+flags of ``spatial_alignment_tpu_torch/ops/_build.py`` and runs them on the
+same inputs at the shapes of the fits' paths. It raises when the two
+Cholesky, factor or solve results differ in any bit: these kernels'
+rounding is part of their contract (the header of csrc/common.cuh). The
+quad backward may round otherwise than an earlier design; each checkout's
+is held against ``quad_bwd_plain`` (rel 1e-4, the card tests' limit) and
+this checkout's two launches bit-equal. Then it times each in turns
+(parent, this, this, parent)
 by ``chip_smoke.median_ms`` (device time per call, the host's issue time
 left out), beside the PyTorch library call for the same function. One JSON
 object goes to stdout and to FILE (default
@@ -31,7 +36,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SOURCES = ("cholesky", "factor", "trisolve")
+SOURCES = ("cholesky", "factor", "trisolve", "quad")
 TAGS = ("parent", "this")
 # Shapes on the fits' paths: the m = 200 final slab and jitter probe (two
 # rungs stacked), the 100k fit's m = 100 pair, the m = 50 pair, and the
@@ -45,6 +50,10 @@ SOLVES = [((1, 200, 200), (1, 200, 2), False), ((1, 200, 200), (1, 200, 2), True
           ((50, 50), (5, 50, 200), False), ((50, 50), (5, 50, 200), True),
           ((1, 50, 50), (1, 50, 100), False), ((1, 50, 50), (1, 50, 100), True),
           ((2, 200, 200), None, False)]
+# Quad-diag backward (x shape, F shape): the m = 200 fit's data and warp
+# layers, the m = 50 fit's.
+QUAD_BWD = [((5, 4050, 200), (10, 200, 200)), ((1, 2025, 200), (1, 2, 200, 200)),
+            ((5, 200, 50), (30, 50, 50)), ((1, 100, 50), (1, 2, 50, 50))]
 
 
 def build(out_dir: Path, csrc: Path, name: str, tag: str):
@@ -60,10 +69,17 @@ def bind(path: Path) -> ctypes.CDLL:
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for fn, args in (("sat_cholesky_f32", [vp, vp, ll, i, vp]),
                      ("sat_factor_f32", [vp, vp, vp, ll, i, vp]),
-                     ("sat_trisolve_f32", [vp, ll, vp, vp, ll, i, i, i, i, vp])):
+                     ("sat_trisolve_f32", [vp, ll, vp, vp, ll, i, i, i, i, vp]),
+                     ("sat_quad_bwd_splits", [i, i, i, i, i]),
+                     ("sat_quad_bwd_design", [i, i, i, i, i, ctypes.POINTER(ll)])):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = i
+    if hasattr(lib, "sat_quad_bwd_f32"):  # the first design's entry takes the splits
+        first = hasattr(lib, "sat_quad_bwd_splits")
+        lib.sat_quad_bwd_f32.argtypes = [vp, vp, ll, vp, vp, vp, vp, i, i, i, i, i,
+                                         *([i] if first else []), vp]
+        lib.sat_quad_bwd_f32.restype = i
     return lib
 
 
@@ -183,12 +199,81 @@ def main() -> int:
         fns["library"] = lambda: torch.linalg.solve_triangular(op, rhs, upper=trans)
         record["trisolve"].append({"L": list(l_shape), "B": None if ident else list(b_shape),
                                    "trans": trans, "ms": in_turns(fns)})
-    record["bit_equal_to_parent"] = True
+    record["quad_bwd"] = probe_quad_bwd(libs, gen, stream, launched, in_turns)
+    record["bit_equal_to_parent"] = ["cholesky", "factor", "trisolve"]
     text = json.dumps(record)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(text + "\n")
     print(text, flush=True)
     return 0
+
+
+def probe_quad_bwd(libs, gen, stream, launched, in_turns):
+    """Each checkout's quad backward against the plain version at the fits'
+    shapes, this checkout's launched twice and held bit-equal, then both
+    timed in turns (no library call computes it)."""
+    import torch
+    from chip_smoke import bit_equal, rel_err
+    from spatial_alignment_tpu_torch.ops import quad
+
+    rows = []
+    for x_shape, f_shape in QUAD_BWD:
+        G, N, m = x_shape
+        L = f_shape[-3]
+        n_groups = G if len(f_shape) == 4 else 1
+        x = torch.randn(x_shape, generator=gen, device="cuda")
+        F = 0.1 * torch.randn(f_shape, generator=gen, device="cuda")
+        dy = torch.randn((G, L, N), generator=gen, device="cuda")
+        fg = L * m * m if n_groups > 1 else 0
+
+        def runner(t):
+            lib = libs[(t, "quad")]
+            dx, dF = torch.empty_like(x), torch.empty_like(F)
+            if hasattr(lib, "sat_quad_bwd_design"):
+                d = (ctypes.c_longlong * 8)()
+                launched(lib.sat_quad_bwd_design(G, N, m, L, n_groups, d), f"design {t}")
+                design = list(d)
+                scratch = torch.empty((design[7],), device="cuda")
+
+                def run():
+                    launched(lib.sat_quad_bwd_f32(
+                        x.data_ptr(), F.data_ptr(), fg, dy.data_ptr(), dx.data_ptr(),
+                        dF.data_ptr(), scratch.data_ptr(), G, N, m, L, n_groups, stream()),
+                        f"quad_bwd {t}")
+            else:  # the first design's entry: partial sums sized by its splits
+                design = None
+                splits = lib.sat_quad_bwd_splits(G, N, m, L, n_groups)
+                partial = torch.empty((splits * n_groups * L * m * m,), device="cuda")
+
+                def run():
+                    launched(lib.sat_quad_bwd_f32(
+                        x.data_ptr(), F.data_ptr(), fg, dy.data_ptr(), dx.data_ptr(),
+                        dF.data_ptr(), partial.data_ptr(), G, N, m, L, n_groups, splits,
+                        stream()), f"quad_bwd {t}")
+            return run, dx, dF, design
+
+        dxp, dFp = quad.quad_bwd_plain(x, F, dy)
+        fns, rels, design = {}, {}, None
+        for t in TAGS:
+            run, dx, dF, d = runner(t)
+            run()
+            torch.cuda.synchronize()
+            rels[t] = max(rel_err(dx, dxp), rel_err(dF, dFp))
+            if rels[t] > 1e-4:
+                raise AssertionError(f"quad_bwd {t} {x_shape}: rel {rels[t]} to plain")
+            if t == "this":
+                design = d
+                first = (dx.clone(), dF.clone())
+                run()
+                torch.cuda.synchronize()
+                if not (bit_equal(first[0], dx) and bit_equal(first[1], dF)):
+                    raise AssertionError(f"quad_bwd {x_shape}: two launches differ")
+            fns[t] = run
+        fns["library"] = lambda: quad.quad_bwd_plain(x, F, dy)
+        rows.append({"x": list(x_shape), "F": list(f_shape), "rel_vs_plain": rels,
+                     "design_this": design, "bit_equal_twice": True,
+                     "ms": in_turns(fns), "library_is": "quad_bwd_plain (no library call)"})
+    return rows
 
 
 if __name__ == "__main__":
