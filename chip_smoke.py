@@ -10,7 +10,9 @@ paths are driven: the default ``fit()`` (Cholesky kernel only); the model
 built with the three kernel opt-ins ``cholesky_impl="pallas"``,
 ``quad_diag_impl="pallas"`` and ``fused_factor_inverse="fused"``
 (Cholesky probe, fused factor, triangular solve, quad-diag forward and
-backward); and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
+backward), each at m = 200 and m = 50 and, past the 240 where the Cholesky
+and the fused factor leave shared memory for their panel design, at
+m = 384; and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
 ``data_chunk_size``) and its ``predict()``, on the default route and under
 ``set_gram_force(True)`` (cross-Gram kernel). Phases, one JSON line each:
 
@@ -23,21 +25,25 @@ backward); and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
   mb100k_first_loss_draws  the 100k model's minibatch loss before training
              on three other draws: default route, forced Gram kernel, and
              float64 on the CPU
-  kernels    cholesky at every main-path shape (the m = 200 fit's and the
-             100k fit's m = 100 slabs, captured from one loss of each), and
-             at m = 256 (global-memory variant): error vs the plain version
-             on random and on the real inputs, reconstruction residual, two
+  kernels    cholesky at every main-path shape (the m = 200, m = 384 and
+             100k (m = 100) fits' slabs, captured from one loss of each), and
+             at (2, 256, 256) and (4, 512, 512): error vs the plain version
+             on random and on the real inputs (with their cond and jitter
+             rung), reconstruction residual, two
              launches bit-equal, L bit-equal to the fused factor's and to
-             the column recurrence's (its m = 256 variant on diag(A, I)) up
-             to m = 240, NaN lanes and contract (failing pivots in the first, a
-             middle and the last panel), autograd vs the plain path, median
-             times, the design (panel width, blocks per matrix, shared
-             memory); then trisolve, quad_fwd, quad_bwd and factor at every
+             the column recurrence's (the reference entry
+             cholesky_recurrence) at every m, NaN lanes and contract (failing
+             pivots in the first, a middle and the last panel), autograd vs
+             the plain path, median times, the design (shared memory or
+             panel, panel width, blocks per matrix, shared memory); then
+             trisolve, quad_fwd, quad_bwd and factor at every
              shape the opt-in fits give them (captured from one loss and
              gradient of each), on random well-conditioned input and on the
              real inputs (trisolve, quad_fwd and quad_bwd launched twice,
              bit-equal; the quad rows carry their design: tiles, splits,
-             cluster, and the 3xTF32 bound beside the fp32 one);
+             cluster, and the 3xTF32 bound beside the fp32 one), and the
+             solve with L read from global memory (L (640, 640), B
+             (640, 32), off the paths);
              then gram at every shape the forced 100k fits and predict() give
              it, for the three kernel kinds, against its plain version and
              the expansion form, with the bfloat16 store
@@ -47,6 +53,10 @@ backward); and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
              200 steps: exact launches per step of every kernel, no plain
              call, first loss beside fit_m200's, peak memory
   fit_m50_pallas   the m = 50 grid with the opt-ins, 100 steps (kl_inverse)
+  fit_m384   fit_m200's data with m = 384 (the panel designs), 50 steps:
+             2 Cholesky launches a step, no plain call, peak memory
+  fit_m384_pallas  the same model with the opt-ins, 20 steps: exact
+             launches a step of every kernel, first loss beside fit_m384's
   predict    predict() and forward(S=5) on the m = 200 models
   fit_mb100k  the 100k-spot configuration of bench.py (two views of 50,000,
              10 genes, m = 100, LMC 10, data_chunk_size 8192) by minibatch
@@ -579,7 +589,8 @@ def phase_kernels(device, real_inputs, peaks):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    shapes = [(2, 50, 50), (34, 50, 50), (2, 2, 200, 200), (14, 200, 200), (2, 256, 256)]
+    shapes = [(2, 50, 50), (34, 50, 50), (2, 2, 200, 200), (14, 200, 200), (2, 256, 256),
+              (2, 2, 384, 384), (14, 384, 384), (4, 512, 512)]
     shapes += [tuple(A.shape) for A in real_inputs if tuple(A.shape) not in shapes]
     results = {}
     for shape in shapes:
@@ -599,28 +610,38 @@ def phase_kernels(device, real_inputs, peaks):
         check(upper_zero, f"cholesky {shape}: nonzero above the diagonal")
         check(bit_equal(Lk, Lk2), f"cholesky {shape}: two launches differ")
         held_l = same_l(A, Lk)
+        # The panel design in one block a matrix, beside the cluster the
+        # kernel picks: the same L bit for bit, and its time.
+        one_block = None
+        if ch.blocks_per_matrix(B, m) > 1:
+            check(bit_equal(ch.cholesky_kernel(A, blocks=1), Lk),
+                  f"cholesky {shape}: one block a matrix differs from the cluster")
+            one_block = median_ms(lambda: ch.cholesky_kernel(A, blocks=1))
         # Bound: each input byte read once, each output byte written once,
         # m^3/3 flops per matrix, against the part's published peaks.
         t_bytes = 2 * B * m * m * 4 / peaks[0] * 1e3
         t_ops = B * m**3 / 3 / peaks[1] * 1e3
         results[tuple(shape)] = {
-            "shape": list(shape), "smem": ch.uses_shared_memory(m),
+            "shape": list(shape), "smem": ch.uses_shared_memory(m), "design": ch.design(m),
             "smem_bytes": ch._library().sat_cholesky_smem_bytes(m),
             "panel_nb": ch._library().sat_cholesky_panel(),
-            "blocks_per_matrix": ch._library().sat_cholesky_blocks_per_matrix(),
+            "blocks_per_matrix": ch.blocks_per_matrix(B, m),
             "bit_equal_twice": True,
             "l_bit_equal_to_factor_and_recurrence": held_l, "rel_vs_plain": rel,
             "residual": res,
             "max_abs_err": float((Lk - Lp).abs().max()),
             "kernel_ms": median_ms(lambda: ch.cholesky_kernel(A)),
+            "kernel_ms_one_block": one_block,
             "plain_ms": median_ms(lambda: ch.cholesky_plain(A)),
             "library_ms": median_ms(lambda: torch.linalg.cholesky(A)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
 
-    # The real inputs of the m = 200 and the 100k (m = 100) main paths:
-    # near-singular kernel Grams with their probe and final jitter.
+    # The real inputs of the m = 200, m = 384 and 100k (m = 100) paths:
+    # near-singular kernel Grams with their probe and final jitter. A probe
+    # slab stacks the 1x and 10x rungs: its first lane without NaN is the
+    # rung the path takes (100x when neither factors).
     real = []
     for A in real_inputs:
         Lk, Lp = ch.cholesky_kernel(A), ch.cholesky_plain(A)
@@ -639,9 +660,13 @@ def phase_kernels(device, real_inputs, peaks):
         check(res <= 1e-5, f"real {tuple(A.shape)}: residual {res}")
         check(rel <= max(1e-4, 10 * cond * 2.0**-24), f"real {tuple(A.shape)}: rel {rel} (cond {cond})")
         check(bit_equal(Lk, ch.cholesky_kernel(A)), f"real {tuple(A.shape)}: two launches differ")
+        rungs = None
+        if A.dim() == 4:
+            rungs = [1 if not nan_k[0, b] else 10 if not nan_k[1, b] else 100
+                     for b in range(A.shape[1])]
         real.append({"shape": list(A.shape), "cond": cond, "rel_vs_plain": rel, "residual": res,
                      "max_abs_err": float((Lk[ok] - Lp[ok]).abs().max()),
-                     "nan_lanes": int(nan_k.sum()), "bit_equal_twice": True,
+                     "nan_lanes": int(nan_k.sum()), "jitter_rungs": rungs, "bit_equal_twice": True,
                      "l_bit_equal_to_factor_and_recurrence": same_l(A, Lk)})
 
     # NaN contract: an indefinite lane inside a batch.
@@ -656,8 +681,8 @@ def phase_kernels(device, real_inputs, peaks):
     check(bool(torch.isfinite(others).all()), "indefinite lane leaked into other lanes")
     check(rel_err(others, ch.cholesky_plain(A[[0, 2, 3]])) <= 1e-4, "other lanes differ")
     # Failing pivots in the first, a middle and the last 32-column panel
-    # (lanes 1-3; lanes 0 and 4 are SPD), at both path widths.
-    for m in (200, 50):
+    # (lanes 1-3; lanes 0 and 4 are SPD), at the paths' widths.
+    for m in (384, 200, 50):
         A = spd(gen, 5, m, device)
         for lane, p in zip((1, 2, 3), (3, m // 2, m - 1)):
             A[lane, p, p] = -5.0
@@ -726,24 +751,15 @@ def bit_equal(a, b) -> bool:
 
 def same_l(A, L):
     """Hold the Cholesky kernel's L (``L``, of ``A``) equal bit for bit to the
-    fused factor's, which runs the same blocked routine up to m = 240, and to
-    the column recurrence's, whose rounding that routine keeps: the kernel
-    factors diag(A, I) at m = 256 in its global-memory variant, the
-    recurrence, and the top-left block of that factor is A's. True when
-    held, None above m = 240, where the Cholesky kernel is the recurrence."""
-    import torch
+    fused factor's, which runs the same blocked routines, and to the column
+    recurrence's (the reference entry ``cholesky_recurrence``), whose
+    rounding both designs keep, at every m. True when held."""
     from spatial_alignment_tpu_torch.ops import cholesky as ch
     from spatial_alignment_tpu_torch.ops import factor
 
-    m = A.shape[-1]
-    if m > 240:
-        return None
     check(bit_equal(factor.cholesky_and_inverse_kernel(A)[0], L),
           f"{tuple(A.shape)}: the Cholesky kernel's L differs from the fused factor's")
-    big = torch.eye(256, device=A.device).repeat(A.shape[:-2] + (1, 1))
-    big[..., :m, :m] = A
-    Lr = ch.cholesky_kernel(big)[..., :m, :m].contiguous()
-    check(bit_equal(Lr, L),
+    check(bit_equal(ch.cholesky_recurrence(A), L),
           f"{tuple(A.shape)}: the Cholesky kernel's L differs from the column recurrence's")
     return True
 
@@ -950,12 +966,16 @@ def phase_new_kernels(device, captured, peaks):
             n_bytes = 4 * (2 * x.numel() + 2 * F.numel() + dy.numel())
             b, by = bound_ms(n_bytes, 3 * 3 * 2 * G * N * Lc * m * m, peaks, peaks[2])
             b32, _ = bound_ms(n_bytes, 3 * 2 * G * N * Lc * m * m, peaks)
+            design = quad.bwd_design(G, N, m, Lc, G if F.dim() == 4 else 1)
             rows["quad_bwd"].append({
                 "x": list(x.shape), "F": list(F.shape), "rel_vs_plain": rel_real,
                 "rel_vs_plain_random": rel_rand,
                 "max_abs_err": max(float((dxk - dxp).abs().max()), float((dFk - dFp).abs().max())),
-                "bit_equal_twice": True, "products": "3xTF32 mma.sync m16n8k8",
-                "design": quad.bwd_design(G, N, m, Lc, G if F.dim() == 4 else 1),
+                "bit_equal_twice": True,
+                # Above m = 256 (no column tiles) the first design runs, in fp32.
+                "products": ("3xTF32 mma.sync m16n8k8" if list(design.values())[0]
+                             else "fp32 tiles (first design)"),
+                "design": design,
                 "cluster": 1, "bound_fp32_ms": b32,
                 "kernel_ms": median_ms(lambda: quad.quad_bwd_kernel(x, F, dy), n=30),
                 "plain_ms": median_ms(lambda: quad.quad_bwd_plain(x, F, dy), n=30),
@@ -981,9 +1001,11 @@ def phase_new_kernels(device, captured, peaks):
             Ar = spd(gen, Bn, m, device).reshape(A.shape)
             same_l(Ar, ch.cholesky_kernel(Ar))
             rows["factor"].append({
-                "shape": list(A.shape), "smem": factor.uses_shared_memory(m), "real": real,
+                "shape": list(A.shape), "smem": factor.uses_shared_memory(m),
+                "design": factor.design(m), "real": real,
                 "random": rand, "panel_nb": factor._library().sat_factor_panel(),
-                "blocks_per_matrix": 1, "l_bit_equal_to_cholesky_kernel": held_l,
+                "blocks_per_matrix": 1,
+                "l_bit_equal_to_cholesky_kernel": held_l,
                 "kernel_ms": median_ms(lambda: factor.cholesky_and_inverse_kernel(A)),
                 "plain_ms": median_ms(lambda: factor.cholesky_and_inverse_plain(A)),
                 "library_ms": median_ms(chain),
@@ -1018,6 +1040,26 @@ def phase_new_kernels(device, captured, peaks):
                         "library": "torch.linalg.solve_triangular(L, I, upper=False)",
                         "bound_ms": b, "bound_by": by})
 
+    # The solve with L read from global memory (two staged panels and the
+    # tile overrun shared memory past m = 592 against 32 columns): off the
+    # paths, a user's m above 592.
+    global_l = []
+    for trans in (False, True):
+        m, n = 640, 32
+        L = well_conditioned_factor(gen, (1, m, m), device)
+        B = torch.randn(1, m, n, generator=gen, device=device)
+        check(not ts.uses_shared_memory(m, n), "trisolve (640, 32): expected L in global memory")
+        rec = check_trisolve(L, B, trans, 1e-4, f"trisolve global L trans={trans}")
+        b, by = bound_ms(4 * (m * (m + 1) / 2 + 2 * m * n), n * m * m, peaks)
+        op = L.transpose(-1, -2) if trans else L
+        global_l.append({"L": [1, m, m], "B": [1, m, n], "trans": trans, "smem": False,
+                         "random": rec,
+                         "kernel_ms": median_ms(lambda: ts.tri_solve_kernel(L, B, trans)),
+                         "plain_ms": median_ms(lambda: ts.tri_solve_plain(L, B, trans)),
+                         "library_ms": median_ms(lambda: torch.linalg.solve_triangular(
+                             op, B, upper=trans)),
+                         "bound_ms": b, "bound_by": by})
+
     # NaN pivot in a solve with several lanes, and a failed lane in the
     # fused factor (the jitter probes' contract).
     L = well_conditioned_factor(gen, (3, 200, 200), device)
@@ -1035,8 +1077,8 @@ def phase_new_kernels(device, captured, peaks):
         check(bool((out[1][~lower] == 0).all()), "factor: failed lane not 0 above")
         check(bool(torch.isfinite(out[[0, 2, 3]]).all()), "factor: failed lane leaked")
     # Failing pivots in the first, a middle and the last 32-column panel
-    # (lanes 1-3; lanes 0 and 4 are SPD), at both path widths.
-    for m in (200, 50):
+    # (lanes 1-3; lanes 0 and 4 are SPD), at the paths' widths.
+    for m in (384, 200, 50):
         A = spd(gen, 5, m, device)
         for lane, p in zip((1, 2, 3), (3, m // 2, m - 1)):
             A[lane, p, p] = -5.0
@@ -1078,7 +1120,8 @@ def phase_new_kernels(device, captured, peaks):
             grads.append([t.grad.cpu() for t in leaves])
         grad_rel[name] = max(rel_err(g, c) for g, c in zip(*grads))
         check(grad_rel[name] <= 1e-3, f"{name}: gradient rel {grad_rel[name]}")
-    return {**rows, "tri_inverse": inverse, "nan_contract": "ok", "grad_rel_vs_plain": grad_rel}
+    return {**rows, "tri_inverse": inverse, "trisolve_global_l": global_l, "nan_contract": "ok",
+            "grad_rel_vs_plain": grad_rel}
 
 
 # Launches per training step of each path, derived from the code. Default
@@ -1131,7 +1174,8 @@ def phase_fit(name, model, n_epochs, S, expect_mode, per_step, minibatch_size=No
     dt = time.perf_counter() - t0
     launches, plain = read_counts()
     check(bool(np.isfinite(losses).all()), f"{name}: non-finite loss")
-    first, last = float(np.mean(losses[:50])), float(np.mean(losses[-50:]))
+    window = min(50, n_epochs // 2)  # the first and last 50 steps, or halves of a short fit
+    first, last = float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
     check(last < first, f"{name}: loss did not fall ({first} -> {last})")
     for kernel, k in per_step.items():
         check(launches[kernel] == k * n_epochs,
@@ -1293,9 +1337,16 @@ def main() -> int:
     # from its generator (as its first step, and as its opt-in twin's capture
     # below), and one minibatch loss of the 100k model from a generator of
     # its own (its twins keep the same generator state).
+    # The m = 384 model: fit_m200's data with more inducing points, where the
+    # Cholesky and the fused factor leave shared memory for their panel
+    # designs (m > 240).
+    kw384 = {**kw200, "m_X_per_view": 384, "m_G": 384}
+    model384 = VariationalGPSA(dd200, **kw384)
     real_inputs = capture_cholesky_inputs(lambda: full_loss(model))
     real_inputs += capture_cholesky_inputs(lambda: minibatch_loss(model_mb, MB_B))
-    want = [(2, 2, 200, 200), (14, 200, 200), (2, 2, 100, 100), (14, 100, 100)]
+    real_inputs += capture_cholesky_inputs(lambda: full_loss(model384))
+    want = [(2, 2, 200, 200), (14, 200, 200), (2, 2, 100, 100), (14, 100, 100),
+            (2, 2, 384, 384), (14, 384, 384)]
     check([tuple(a.shape) for a in real_inputs] == want,
           f"main-path cholesky shapes {[tuple(a.shape) for a in real_inputs]}, expected {want}")
     chol_record, results, real = phase_kernels(device, real_inputs, peaks)
@@ -1311,7 +1362,17 @@ def main() -> int:
     kw50 = dict(m_X_per_view=50, m_G=50, n_latent_gps={"expression": None}, fixed_view_idx=0,
                 device=device)
     model50_p = VariationalGPSA(dd50, **kw50, **OPT_INS)
-    captured = capture_kernel_inputs(model_p) + capture_kernel_inputs(model50_p)
+    model384_p = VariationalGPSA(dd200, **kw384, **OPT_INS)
+    captured384 = capture_kernel_inputs(model384_p)
+    shapes384 = sorted((key, tuple(args[0].shape)) for key, _, args in captured384)
+    want = sorted([("factor", (14, 384, 384)), ("quad_fwd", (5, 4050, 384)),
+                   ("quad_fwd", (1, 2025, 384)), ("quad_bwd", (5, 4050, 384)),
+                   ("quad_bwd", (1, 2025, 384)), ("trisolve", (384, 384)),
+                   ("trisolve", (384, 384)), ("trisolve", (1, 384, 384)),
+                   ("trisolve", (1, 384, 384))])
+    check(shapes384 == want, f"m = 384 opt-in kernel inputs {shapes384}, expected {want}")
+    captured = (capture_kernel_inputs(model_p) + capture_kernel_inputs(model50_p)
+                + captured384)
     new_record = phase_new_kernels(device, captured, peaks)
     # The Gram kernel's inputs: one minibatch loss and gradient of each
     # forced 100k model (indices and noise from a generator of their own)
@@ -1342,6 +1403,22 @@ def main() -> int:
     check(first_rel <= 1e-3, f"fit_m200_pallas: first loss rel {first_rel} vs fit_m200")
     emit("fit_m200_pallas_vs_fit_m200", first_loss_rel=first_rel)
     phase_fit("fit_m50_pallas", model50_p, 100, 5, "kl_inverse", OPTIN_PER_STEP)
+    # m = 384: the panel designs of the Cholesky (both routes) and the fused
+    # factor (opt-in route); the pair starts from the same parameters and
+    # noise, as the m = 200 pair does.
+    from spatial_alignment_tpu_torch.ops import cholesky as ch
+    from spatial_alignment_tpu_torch.ops import factor as fc
+
+    check(ch.design(384) != "smem" and fc.design(384) != "smem",
+          "m = 384: expected the panel designs")
+    fit384 = phase_fit("fit_m384", model384, 50, 5, "mixed", DEFAULT_PER_STEP)
+    fit384_p = phase_fit("fit_m384_pallas", model384_p, 20, 5, "mixed", OPTIN_PER_STEP)
+    rel384 = abs(fit384_p["losses"][0] - fit384["losses"][0]) / abs(fit384["losses"][0])
+    check(rel384 <= 1e-3, f"fit_m384_pallas: first loss rel {rel384} vs fit_m384")
+    emit("fit_m384_pallas_vs_fit_m384", first_loss_rel=rel384,
+         design={"cholesky": ch.design(384), "factor": fc.design(384),
+                 "cholesky_blocks_per_matrix": {"probe": ch.blocks_per_matrix(4, 384),
+                                                "final": ch.blocks_per_matrix(14, 384)}})
 
     G_post, F_mean, F_var = model.predict({"expression": X200})
     fwd = model.forward({"expression": X200}, S=5)
@@ -1426,8 +1503,10 @@ def main() -> int:
     # the counts of the path's 200-step fit: fit_m200 for the Cholesky,
     # fit_m200_pallas for the next four, fit_mb100k_gram for the Gram.
     solve = next(r for r in new_record["trisolve"] if r["B"] == [200, 10] and not r["trans"])
-    qf = max(new_record["quad_fwd"], key=lambda r: math.prod(r["x"]))
-    qb = max(new_record["quad_bwd"], key=lambda r: math.prod(r["x"]))
+    qf = max((r for r in new_record["quad_fwd"] if r["x"][-1] == 200),
+             key=lambda r: math.prod(r["x"]))
+    qb = max((r for r in new_record["quad_bwd"] if r["x"][-1] == 200),
+             key=lambda r: math.prod(r["x"]))
     fac = next(r for r in new_record["factor"] if r["shape"] == [14, 200, 200])
     gr = next(r for r in gram_record["gram"] if r["x2"] == [5, 2 * MB_B, 2] and r["kind"] == "rbf")
     launches_p = fit200_p["launches"]

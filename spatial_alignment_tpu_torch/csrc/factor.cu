@@ -40,11 +40,16 @@
 //   161,600 B at m = 200, 232,320 B at m = 240 under the 232,448 B a block
 //   may have. The inverse multiplies by 1 / L_ii and by W_KK, which is
 //   faster than the recurrence's division.
-// One block per matrix: 14 of 132 SMs at (14, 200, 200). A cluster per
-// matrix was not built (PERF.md).
-// Above m = 240 both phases run as in the first design, in place in global
-// memory on the output buffers (L's, and L^-1's by rows), with the
-// column-at-a-time recurrence of common.cuh.
+// One block per matrix: 14 of 132 SMs at (14, 200, 200).
+// Above m = 240 the same steps run in the panel design of common.cuh: L in
+// the output buffer in global memory, the diagonal block and the panel in
+// shared memory, each W11 written into W's diagonal block; then W by the
+// same blocked substitution (panel_inverse) with W in its own output
+// buffer, the panel of L and the block row of W in shared memory (48 KB
+// and 72 KB at m = 384), three barriers a block row, one block a matrix
+// (a thread-block cluster, which speeds the Cholesky from m = 384 on, was
+// slower here: PERF.md). L is the Cholesky kernel's bit for bit at every
+// m; W multiplies by 1 / L_ii and by W_KK, as below 240.
 // NaN contract, as ops/cholesky.py: a pivot that is not > 0 marks the
 // matrix as failed; its L and L^-1 are NaN over the whole lower triangle
 // and 0 above. Other matrices are other blocks and stay untouched.
@@ -54,44 +59,6 @@
 namespace {
 
 constexpr int kThreads = kCholThreads;
-
-// W = L^-1 below the diagonal, from the lower triangle of the row-major
-// m x m `a`: W[i][c] (i > c) is kept at w[i * w_row + c * w_col], and
-// 1 / L_ii at diag[i]. col: m floats of shared memory.
-__device__ void invert_lower(const float* a, int m, float* w, int w_row, int w_col,
-                             float* col, float* diag) {
-  const int tid = threadIdx.x;
-  for (int t = tid; t < m * m; t += kThreads) {
-    const int i = t / m;
-    const int c = t - i * m;
-    if (i > c) w[(size_t)i * w_row + (size_t)c * w_col] = 0.0f;  // B = I below the diagonal
-  }
-  __syncthreads();
-  for (int j = 0; j < m; ++j) {
-    const float ljj = a[(size_t)j * m + j];
-    for (int c = tid; c < j; c += kThreads) w[(size_t)j * w_row + (size_t)c * w_col] /= ljj;
-    if (tid == 0) diag[j] = 1.0f / ljj;
-    for (int i = j + 1 + tid; i < m; i += kThreads) col[i] = a[(size_t)i * m + j];
-    __syncthreads();  // row j of W and column j of L are complete
-    const int rows = m - j - 1;
-    const int ncol = j + 1;
-    for (int t = tid; t < rows * ncol; t += kThreads) {
-      // Neighbouring threads take neighbouring words of w.
-      int i, c;
-      if (w_row == 1) {
-        c = t / rows;
-        i = j + 1 + (t - c * rows);
-      } else {
-        const int r = t / ncol;
-        i = j + 1 + r;
-        c = t - r * ncol;
-      }
-      const float wjc = (c == j) ? diag[j] : w[(size_t)j * w_row + (size_t)c * w_col];
-      w[(size_t)i * w_row + (size_t)c * w_col] -= col[i] * wjc;
-    }
-    __syncthreads();  // the rows below j are updated before row j + 1 is read
-  }
-}
 
 // W = L^-1 by blocked forward substitution, W[i][c] (i > c) at a[c ld + i].
 __device__ void blocked_inverse(float* a, const float* diag, int m, int ld) {
@@ -171,7 +138,7 @@ __device__ void blocked_inverse(float* a, const float* diag, int m, int ld) {
 
 __global__ void __launch_bounds__(kThreads, 1)
 factor_smem_kernel(const float* __restrict__ in, float* __restrict__ out_l,
-                   float* __restrict__ out_inv, int m) {
+                   float* __restrict__ out_inv, float*, int m) {
   extern __shared__ float smem[];
   const int ld = m + 1;
   float* a = smem;            // m x ld: L below, W^T above the diagonal
@@ -196,74 +163,117 @@ factor_smem_kernel(const float* __restrict__ in, float* __restrict__ out_l,
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-factor_global_kernel(const float* __restrict__ in, float* __restrict__ out_l,
-                     float* __restrict__ out_inv, int m) {
-  extern __shared__ float smem[];
-  float* col = smem;       // m
-  float* diag = col + m;   // m
-  const size_t off = (size_t)blockIdx.x * m * m;
-  float* a = out_l + off;    // L's output buffer is the workspace
-  float* w = out_inv + off;  // W by rows in its own output buffer
-  const size_t mm = (size_t)m * m;
-  for (size_t t = threadIdx.x; t < mm; t += kThreads) a[t] = in[off + t];
+// The panel design: the panels in shared memory (kSmemPanel) or in
+// `scratch` (panel_buffer_floats(m, true) a matrix); kVec: m % 4 == 0 and in,
+// out_l, out_inv 16-byte aligned. One block a matrix.
+template <bool kSmemPanel, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+factor_panel_kernel(const float* __restrict__ in, float* __restrict__ out_l,
+                    float* __restrict__ out_inv, float* __restrict__ scratch, int m) {
+  extern __shared__ float4 smem4[];
+  const Team<false> team;
+  const size_t mat = blockIdx.x;
+  float* dblk = reinterpret_cast<float*>(smem4);  // NB x kLdd: the diagonal block
+  float* diag = dblk + NB * kLdd;                 // m: 1 / L_ii, the diagonal of W
+  float* xbuf = diag + round4(m);                 // kWarps x NB x kLdd
+  float* wp = kSmemPanel ? xbuf + kWarps * NB * kLdd  // NB x padded_ld(m): P, then W's rows
+                         : scratch + mat * panel_buffer_floats(m, true);
+  float* lp = wp + NB * padded_ld(m);  // NB x round4(m): L's panel
+  const size_t off = mat * m * m;
+  float* a = out_l + off;
+  float* w = out_inv + off;
+  __shared__ int failed;
+  const bool ok = panel_cholesky<true, kSmemPanel, kVec>(in + off, a, w, dblk, diag, wp,
+                                                         &failed, m, team);
+  if (ok) panel_inverse<kSmemPanel, kVec>(a, w, dblk, diag, lp, wp, xbuf, m);
   __syncthreads();
-  const bool ok = factor_in_place(a, col, m);
-  __syncthreads();
-  if (ok) invert_lower(a, m, w, m, 1, col, diag);
-  __syncthreads();
+  finish_lower(a, m, ok, 0, 1);
   const float nan = quiet_nan();
-  for (size_t t = threadIdx.x; t < mm; t += kThreads) {
-    const size_t r = t / m;
-    const size_t c = t - r * m;
-    a[t] = (c <= r) ? (ok ? a[t] : nan) : 0.0f;
-    if (c > r) w[t] = 0.0f;
-    else if (c == r) w[t] = ok ? diag[r] : nan;
-    else if (!ok) w[t] = nan;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int r = warp; r < m; r += kWarps) {
+    float* row = w + (size_t)r * m;
+    for (int c = (ok ? r : 0) + lane; c < m; c += 32)
+      row[c] = c > r ? 0.0f : (ok ? diag[r] : nan);
   }
+}
+
+// The design for an m x m factor under the shared-memory limit: 0 the whole
+// matrix in shared memory, 1 the panel design with its panels in shared
+// memory, 2 with them in global memory.
+int design(int m, int limit) {
+  if (blocked_smem_bytes(m) <= (size_t)limit) return 0;
+  const size_t panel = (panel_fixed_floats(m, true) + panel_buffer_floats(m, true)) * sizeof(float);
+  return panel + 64 <= (size_t)limit ? 1 : 2;
+}
+
+size_t design_smem(int m, int d) {
+  if (d == 0) return blocked_smem_bytes(m);
+  return (panel_fixed_floats(m, true) + (d == 1 ? panel_buffer_floats(m, true) : 0)) * sizeof(float);
+}
+
+// Launch the design for m on `batch` matrices, one block a matrix.
+int launch_design(const float* in, float* l, float* v, float* scratch, long long batch, int m,
+                  int limit, cudaStream_t s) {
+  const int d = design(m, limit);
+  const size_t smem = design_smem(m, d);
+  if (d == 2 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const bool vec = m % 4 == 0 && ((uintptr_t)in | (uintptr_t)l | (uintptr_t)v) % 16 == 0;
+  const unsigned n = (unsigned)batch;
+  if (d == 0) return launch_panel(factor_smem_kernel, smem, n, 1, s, in, l, v, scratch, m);
+  if (d == 1)
+    return vec ? launch_panel(factor_panel_kernel<true, true>, smem, n, 1, s, in, l, v, scratch, m)
+               : launch_panel(factor_panel_kernel<true, false>, smem, n, 1, s, in, l, v, scratch,
+                              m);
+  return vec ? launch_panel(factor_panel_kernel<false, true>, smem, n, 1, s, in, l, v, scratch, m)
+             : launch_panel(factor_panel_kernel<false, false>, smem, n, 1, s, in, l, v, scratch,
+                            m);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Columns per panel of the shared-memory design.
+// Columns per panel of either design.
 int sat_factor_panel() { return NB; }
 
 // 1 when an m x m factor and inverse run in shared memory, 0 when they run
-// in global memory, -1 on error.
+// the panel design (the matrices in global memory), -1 on error.
 int sat_factor_uses_smem(int m) {
   const int limit = smem_optin_limit();
   if (limit < 0) return -1;
-  return blocked_smem_bytes(m) <= (size_t)limit ? 1 : 0;
+  return design(m, limit) == 0 ? 1 : 0;
+}
+
+// The design for an m x m factor: 0 the whole matrix in shared memory, 1
+// the panel design with its panels in shared memory, 2 with them in global
+// memory; -1 on error.
+int sat_factor_design(int m) {
+  const int limit = smem_optin_limit();
+  if (limit < 0) return -1;
+  return design(m, limit);
+}
+
+// Floats of scratch in global memory sat_factor_f32 needs for `batch`
+// m x m matrices (0 when the panels fit shared memory), or -1 on error.
+long long sat_factor_scratch_floats(long long batch, int m) {
+  const int limit = smem_optin_limit();
+  if (limit < 0) return -1;
+  return design(m, limit) == 2 ? batch * (long long)panel_buffer_floats(m, true) : 0;
 }
 
 // in: `batch` contiguous row-major symmetric m x m float32 matrices on the
-// device; out_l, out_inv: the same shape, L and L^-1. Launches on `stream`
-// and returns cudaGetLastError() (0 = launched).
-int sat_factor_f32(const void* in, void* out_l, void* out_inv, long long batch, int m,
-                   void* stream) {
+// device; out_l, out_inv: the same shape, L and L^-1; scratch:
+// sat_factor_scratch_floats(batch, m) floats on the device (may be null
+// when that is 0). Launches on `stream` and returns cudaGetLastError()
+// (0 = launched).
+int sat_factor_f32(const void* in, void* out_l, void* out_inv, void* scratch, long long batch,
+                   int m, void* stream) {
   if (batch <= 0 || m <= 0) return 0;
   const int limit = smem_optin_limit();
   if (limit < 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = blocked_smem_bytes(m);
-  if (smem <= (size_t)limit) {
-    cudaError_t e = cudaFuncSetAttribute(
-        factor_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    factor_smem_kernel<<<(unsigned)batch, kThreads, smem, s>>>(
-        (const float*)in, (float*)out_l, (float*)out_inv, m);
-  } else {
-    const size_t bufs = 2 * (size_t)m * sizeof(float);
-    if (bufs > (size_t)limit) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(
-        factor_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bufs);
-    if (e != cudaSuccess) return (int)e;
-    factor_global_kernel<<<(unsigned)batch, kThreads, bufs, s>>>(
-        (const float*)in, (float*)out_l, (float*)out_inv, m);
-  }
-  return (int)cudaGetLastError();
+  return launch_design((const float*)in, (float*)out_l, (float*)out_inv, (float*)scratch, batch,
+                       m, limit, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -31,6 +31,9 @@ __all__ = [
     "cholesky",
     "cholesky_kernel",
     "cholesky_plain",
+    "blocks_per_matrix",
+    "cholesky_recurrence",
+    "design",
     "murray_backward",
     "uses_shared_memory",
 ]
@@ -45,11 +48,19 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("cholesky")
-        lib.sat_cholesky_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        lib.sat_cholesky_f32.restype = ctypes.c_int
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.sat_cholesky_f32.argtypes = [vp, vp, vp, ll, i, vp]
+        lib.sat_cholesky_f32.restype = i
+        lib.sat_cholesky_scratch_floats.argtypes = [ll, i]
+        lib.sat_cholesky_scratch_floats.restype = ll
+        lib.sat_cholesky_f32_blocks.argtypes = [vp, vp, vp, ll, i, i, vp]
+        lib.sat_cholesky_f32_blocks.restype = i
+        lib.sat_cholesky_blocks_per_matrix.argtypes = [ll, i]
+        lib.sat_cholesky_blocks_per_matrix.restype = i
+        lib.sat_cholesky_recurrence_f32.argtypes = [vp, vp, ll, i, vp]
+        lib.sat_cholesky_recurrence_f32.restype = i
+        lib.sat_cholesky_design.argtypes = [ctypes.c_int]
+        lib.sat_cholesky_design.restype = ctypes.c_int
         lib.sat_cholesky_uses_smem.argtypes = [ctypes.c_int]
         lib.sat_cholesky_uses_smem.restype = ctypes.c_int
         lib.sat_cholesky_smem_bytes.argtypes = [ctypes.c_int]
@@ -59,44 +70,104 @@ def _library() -> ctypes.CDLL:
 
 
 def uses_shared_memory(m: int) -> bool:
-    """Whether the kernel keeps an m x m matrix in shared memory on the
-    current device (else it runs the global-memory variant)."""
-    r = _library().sat_cholesky_uses_smem(int(m))
+    """Whether the kernel keeps the whole m x m matrix in shared memory on
+    the current device (m <= 240 on an H100); else it runs the panel design,
+    with the trailing matrix in global memory."""
+    return design(m) == "smem"
+
+
+_DESIGNS = {0: "smem", 1: "panel_smem", 2: "panel_global"}
+
+
+def design(m: int) -> str:
+    """The kernel's design for an m x m matrix on the current device:
+    ``"smem"`` (the whole matrix in shared memory), ``"panel_smem"`` (the
+    trailing matrix in global memory, the 32-column panel in shared memory)
+    or ``"panel_global"`` (the panel in scratch in global memory, which
+    the wrapper allocates)."""
+    r = _library().sat_cholesky_design(int(m))
     if r < 0:
         raise RuntimeError("could not query the device's shared-memory limit")
-    return bool(r)
+    return _DESIGNS[r]
 
 
 def _symmetrize(a: torch.Tensor) -> torch.Tensor:
     return 0.5 * (a + a.transpose(-1, -2))
 
 
-def cholesky_kernel(a: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on a symmetric f32 (..., m, m) CUDA tensor."""
-    global launches
+def blocks_per_matrix(batch: int, m: int) -> int:
+    """Thread blocks the kernel gives each of ``batch`` m x m matrices on the
+    current device: from m = 384 on, a thread-block cluster of 4 (or 2) in
+    the panel design while the batch's clusters fit the card at once; else
+    1."""
+    r = _library().sat_cholesky_blocks_per_matrix(int(batch), int(m))
+    if r < 0:
+        raise RuntimeError("could not query the device")
+    return r
+
+
+def _check(a: torch.Tensor, what: str) -> None:
     if a.device.type != "cuda":
-        raise ValueError(f"cholesky_kernel needs a CUDA tensor, got {a.device}")
+        raise ValueError(f"{what} needs a CUDA tensor, got {a.device}")
     if a.dtype != torch.float32:
-        raise TypeError(f"cholesky_kernel takes float32, got {a.dtype}")
+        raise TypeError(f"{what} takes float32, got {a.dtype}")
     if a.dim() < 2 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"expected (..., m, m), got {tuple(a.shape)}")
+
+
+def _launch(entry, a: torch.Tensor, what: str, scratch_floats=None, *extra) -> torch.Tensor:
+    """Launch ``entry`` on ``a``; with ``scratch_floats`` it also takes a
+    scratch buffer of that many floats (0: none, a null pointer) and the
+    ``extra`` arguments before the stream."""
     a = a.contiguous()
     m = a.shape[-1]
     batch = math.prod(a.shape[:-2])
     out = torch.empty_like(a)
     if batch == 0 or m == 0:
         return out
-    lib = _library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.sat_cholesky_f32(a.data_ptr(), out.data_ptr(), batch, m, stream)
+        if scratch_floats is None:
+            err = entry(a.data_ptr(), out.data_ptr(), batch, m, stream)
+        else:
+            n = scratch_floats(batch, m)
+            if n < 0:
+                raise RuntimeError("could not query the device's shared-memory limit")
+            scratch = torch.empty(n, dtype=torch.float32, device=a.device) if n else None
+            err = entry(a.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+                        batch, m, *extra, stream)
     if err != 0:
         raise RuntimeError(
-            f"cholesky kernel launch failed with CUDA error {err} "
-            f"(batch={batch}, m={m})"
+            f"{what} launch failed with CUDA error {err} (batch={batch}, m={m})"
         )
-    launches += 1
     return out
+
+
+def cholesky_kernel(a: torch.Tensor, blocks: int | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel on a symmetric f32 (..., m, m) CUDA tensor.
+    ``blocks`` forces the thread blocks a matrix (1, or a cluster of 2 to 8
+    in the panel design with its panel in shared memory) to time one
+    choice against another; None takes :func:`blocks_per_matrix`."""
+    global launches
+    _check(a, "cholesky_kernel")
+    lib = _library()
+    if blocks is None:
+        out = _launch(lib.sat_cholesky_f32, a, "cholesky kernel", lib.sat_cholesky_scratch_floats)
+    else:
+        out = _launch(lib.sat_cholesky_f32_blocks, a, "cholesky kernel",
+                      lib.sat_cholesky_scratch_floats, int(blocks))
+    if math.prod(a.shape[:-2]) and a.shape[-1]:
+        launches += 1
+    return out
+
+
+def cholesky_recurrence(a: torch.Tensor) -> torch.Tensor:
+    """The column recurrence (one column a step, in global memory) on a
+    symmetric f32 (..., m, m) CUDA tensor: the reference whose rounding
+    :func:`cholesky_kernel` keeps bit for bit. For tests and the smoke only;
+    no path calls it, and it counts no launch."""
+    _check(a, "cholesky_recurrence")
+    return _launch(_library().sat_cholesky_recurrence_f32, a, "cholesky recurrence")
 
 
 def cholesky_plain(a: torch.Tensor) -> torch.Tensor:

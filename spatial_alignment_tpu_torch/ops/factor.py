@@ -41,6 +41,7 @@ __all__ = [
     "cholesky_and_inverse",
     "cholesky_and_inverse_kernel",
     "cholesky_and_inverse_plain",
+    "design",
     "uses_shared_memory",
 ]
 
@@ -55,21 +56,37 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("factor")
         vp = ctypes.c_void_p
-        lib.sat_factor_f32.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
+        lib.sat_factor_f32.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
         lib.sat_factor_f32.restype = ctypes.c_int
+        lib.sat_factor_scratch_floats.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        lib.sat_factor_scratch_floats.restype = ctypes.c_longlong
         lib.sat_factor_uses_smem.argtypes = [ctypes.c_int]
         lib.sat_factor_uses_smem.restype = ctypes.c_int
+        lib.sat_factor_design.argtypes = [ctypes.c_int]
+        lib.sat_factor_design.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def uses_shared_memory(m: int) -> bool:
-    """Whether the kernel keeps an m x m factor and its inverse in shared
-    memory on the current device (else it works in global memory)."""
-    r = _library().sat_factor_uses_smem(int(m))
+    """Whether the kernel keeps the whole m x m factor and its inverse in
+    shared memory on the current device (m <= 240 on an H100); else it runs
+    the panel design, with both matrices in global memory."""
+    return design(m) == "smem"
+
+
+_DESIGNS = {0: "smem", 1: "panel_smem", 2: "panel_global"}
+
+
+def design(m: int) -> str:
+    """The kernel's design for an m x m factor on the current device:
+    ``"smem"``, ``"panel_smem"`` (L and L^-1 in global memory, L's panel
+    and a block row of L^-1 in shared memory) or ``"panel_global"`` (those
+    in scratch in global memory, which the wrapper allocates)."""
+    r = _library().sat_factor_design(int(m))
     if r < 0:
         raise RuntimeError("could not query the device's shared-memory limit")
-    return bool(r)
+    return _DESIGNS[r]
 
 
 def cholesky_and_inverse_kernel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -87,10 +104,16 @@ def cholesky_and_inverse_kernel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Te
     L, Linv = torch.empty_like(a), torch.empty_like(a)
     if batch == 0 or m == 0:
         return L, Linv
+    lib = _library()
+    n = lib.sat_factor_scratch_floats(batch, m)
+    if n < 0:
+        raise RuntimeError("could not query the device's shared-memory limit")
+    scratch = torch.empty(n, dtype=torch.float32, device=a.device) if n else None
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _library().sat_factor_f32(
-            a.data_ptr(), L.data_ptr(), Linv.data_ptr(), batch, m, stream
+        err = lib.sat_factor_f32(
+            a.data_ptr(), L.data_ptr(), Linv.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), batch, m, stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -74,9 +74,13 @@ def _tiny_data():
 
 # The path's slabs, then ragged sizes: the edges of the 32-column panels
 # (1, 31, 32, 33, 65), the 100k fit's m = 100, the last sizes of the
-# shared-memory design (238 to 240) and the global-memory variant (241, 256).
-_CHOL_SHAPES = [(2, 50, 50), (34, 50, 50), (14, 200, 200), (2, 256, 256)] + [
-    (5, m, m) for m in (1, 31, 32, 33, 65, 100, 200, 238, 239, 240, 241, 256)]
+# shared-memory design (238 to 240), then the panel design above it (241,
+# 256, 300, the m = 384 fit's slab, 512) and, past the largest panel shared
+# memory holds (m = 1,160), the panel in global memory (1,201, 1,760); m not
+# a multiple of 4 (241, 1,201) takes scalar loads.
+_CHOL_SHAPES = [(2, 50, 50), (34, 50, 50), (14, 200, 200), (2, 256, 256), (14, 384, 384)] + [
+    (5, m, m) for m in (1, 31, 32, 33, 65, 100, 200, 238, 239, 240, 241, 256, 300, 384, 512,
+                        1201, 1760)]
 
 
 @pytest.mark.parametrize("shape", _CHOL_SHAPES)
@@ -84,9 +88,9 @@ def test_cuda_kernel_matches_plain(cuda_device, shape):
     """Kernel vs plain version on the card: rel 1e-4 on well-conditioned
     input, the NaN contract (an indefinite lane, and with a batch of 5
     lanes whose failing pivot lies in the first, a middle and the last
-    panel), one launch counted per call, two launches bit-equal, and, up to
-    m = 240, L equal bit for bit to the fused factor's and to the column
-    recurrence's."""
+    panel), one launch counted per call, two launches bit-equal, and L
+    equal bit for bit to the column recurrence's (the reference entry) and
+    to the fused factor's, at every m."""
     m = shape[-1]
     A = torch.from_numpy(_spd(np.random.default_rng(6), shape[0], m)).to(cuda_device)
     A[0] -= 3.0 * torch.eye(m, device=cuda_device)  # an indefinite lane
@@ -98,22 +102,19 @@ def test_cuda_kernel_matches_plain(cuda_device, shape):
             A[lane, p, p] = -5.0
         bad += [1, 2, 3]
     assert ch.uses_shared_memory(m) == (m <= 240)
+    assert ch.design(m) == ("smem" if m <= 240 else "panel_smem" if m <= 1160 else "panel_global")
     before = ch.launches
     Lk = ch.cholesky_kernel(A)
     Lk2 = ch.cholesky_kernel(A)
     torch.cuda.synchronize()
     assert ch.launches == before + 2
     assert torch.equal(Lk.view(torch.int32), Lk2.view(torch.int32))
-    if m <= 240:
-        Lf, _ = factor.cholesky_and_inverse_kernel(A)
-        # The column recurrence, whose rounding the blocked routine keeps:
-        # the kernel's global-memory variant on diag(A, I) at m = 256.
-        big = torch.eye(256, device=cuda_device).repeat(shape[0], 1, 1)
-        big[:, :m, :m] = A
-        Lr = ch.cholesky_kernel(big)[:, :m, :m].contiguous()
-        torch.cuda.synchronize()
-        assert torch.equal(Lk.view(torch.int32), Lf.view(torch.int32))
-        assert torch.equal(Lk.view(torch.int32), Lr.view(torch.int32))
+    Lr = ch.cholesky_recurrence(A)
+    Lf, _ = factor.cholesky_and_inverse_kernel(A)
+    torch.cuda.synchronize()
+    assert ch.launches == before + 2  # the reference counts no launch
+    assert torch.equal(Lk.view(torch.int32), Lr.view(torch.int32))
+    assert torch.equal(Lk.view(torch.int32), Lf.view(torch.int32))
     lower = torch.tril(torch.ones(m, m, dtype=torch.bool, device=cuda_device))
     for lane in bad:
         assert torch.isnan(Lk[lane][lower]).all()
@@ -122,6 +123,27 @@ def test_cuda_kernel_matches_plain(cuda_device, shape):
     assert torch.isfinite(good).all()
     assert _rel(good, ch.cholesky_plain(A[len(bad):])) <= 1e-4
     assert torch.count_nonzero(torch.triu(good, 1)) == 0
+
+
+@pytest.mark.parametrize("m", [241, 384, 512])
+def test_cuda_panel_cluster_sizes_agree(cuda_device, m):
+    """The Cholesky's panel design with 1, 2, 4 and 8 thread blocks a
+    matrix (a cluster sharing the panel) gives the same L bit for bit, the
+    recurrence's: every element takes the same operations in the same order
+    whichever block does them, and a failing lane is NaN in every one. The
+    kernel's own choice: a cluster of 4 from m = 384 on while the batch's
+    clusters fit the card, else one block."""
+    A = torch.from_numpy(_spd(np.random.default_rng(15), 5, m)).to(cuda_device)
+    A[1, m // 2, m // 2] = -5.0  # a failing lane
+    Lr = ch.cholesky_recurrence(A)
+    assert ch.blocks_per_matrix(5, m) == (4 if m >= 384 else 1)
+    assert ch.blocks_per_matrix(1000, m) == 1
+    lower = torch.tril(torch.ones(m, m, dtype=torch.bool, device=cuda_device))
+    for blocks in (1, 2, 4, 8):
+        L = ch.cholesky_kernel(A, blocks=blocks)
+        torch.cuda.synchronize()
+        assert torch.equal(L.view(torch.int32), Lr.view(torch.int32)), blocks
+        assert torch.isnan(L[1][lower]).all()
 
 
 def test_cuda_cholesky_gradient_matches_cpu(cuda_device):
@@ -166,6 +188,32 @@ def test_cuda_fit_launches_the_kernel_every_step(cuda_device):
     assert np.isfinite(losses).all()
     assert ch.launches == 2 * 5  # the jitter probe and the final factorization
     assert ch.plain_calls == 0
+
+
+@pytest.mark.parametrize("opt_ins", [False, True], ids=["default", "opt_ins"])
+def test_cuda_m384_fit_launches_the_kernels_every_step(cuda_device, opt_ins):
+    """The m = 384 model (the panel designs of the Cholesky and the fused
+    factor) fits with the kernels launched every step and no plain call:
+    2 Cholesky launches a step by default; with the three opt-ins 1
+    Cholesky, 1 fused factor, 8 solves, 2 quad-diag forward and 2 backward."""
+    rng = np.random.default_rng(14)
+    X1 = rng.uniform(0, 10, (400, 2)).astype(np.float32)
+    X = np.concatenate([X1, X1 + 0.1 * rng.standard_normal(X1.shape).astype(np.float32)])
+    Y = np.stack([np.sin(X[:, 0] * (j + 1) / 3.0) + np.cos(X[:, 1]) for j in range(3)], 1)
+    dd = {"expression": {"spatial_coords": X, "outputs": Y.astype(np.float32),
+                         "n_samples_list": [400, 400]}}
+    model = VariationalGPSA(dd, m_X_per_view=384, m_G=384, n_latent_gps={"expression": 2},
+                            fixed_view_idx=0, device=cuda_device,
+                            **(OPT_INS if opt_ins else {}))
+    assert model.spec.svgp_solve_mode == "mixed"
+    ch.launches = ch.plain_calls = factor.launches = factor.plain_calls = 0
+    ts.launches = ts.plain_calls = quad.fwd_launches = quad.bwd_launches = quad.plain_calls = 0
+    losses = model.fit(n_epochs=3, S=2)
+    assert np.isfinite(losses).all()
+    per_step = (1, 1, 8, 2, 2) if opt_ins else (2, 0, 0, 0, 0)
+    got = (ch.launches, factor.launches, ts.launches, quad.fwd_launches, quad.bwd_launches)
+    assert got == tuple(3 * k for k in per_step)
+    assert ch.plain_calls == factor.plain_calls == ts.plain_calls == quad.plain_calls == 0
 
 
 OPT_INS = dict(cholesky_impl="pallas", quad_diag_impl="pallas", fused_factor_inverse="fused")
@@ -306,20 +354,28 @@ def test_cuda_quad_matches_plain(cuda_device, x_shape, f_shape, transposed):
 
 
 # The path's slabs, the edges of the shared-memory design's 32-column
-# panels (1, 31, 32, 33, 65), the m = 100 slab, its largest size (240) and
-# the global-memory variant (256).
+# panels (1, 31, 32, 33, 65), the m = 100 slab, its largest size (240),
+# then the panel design (241, 256, 300, the m = 384 fit's slab, 512) and,
+# past the largest pair of panels shared memory holds (m = 596), the panels
+# in global memory (600, 601, 900); m not a multiple of 4 (241, 601) takes
+# scalar loads.
 @pytest.mark.parametrize("shape", [(14, 200, 200), (34, 50, 50), (4, 256, 256), (5, 1, 1),
                                    (5, 31, 31), (5, 32, 32), (5, 33, 33), (5, 65, 65),
-                                   (5, 100, 100), (5, 240, 240)])
+                                   (5, 100, 100), (5, 240, 240), (5, 241, 241), (5, 256, 256),
+                                   (5, 300, 300), (14, 384, 384), (5, 512, 512),
+                                   (5, 600, 600), (5, 601, 601), (5, 900, 900)])
 def test_cuda_factor_matches_plain(cuda_device, shape):
     """Kernel vs plain version; indefinite lanes whose failing pivot lies in
-    the first, a middle and the last panel; two launches bit-equal."""
+    the first, a middle and the last panel; two launches bit-equal; L equal
+    bit for bit to the column recurrence's; |L L^-1 - I| <= 1e-5."""
     m = shape[-1]
     A = torch.from_numpy(_spd(np.random.default_rng(12), shape[0], m)).to(cuda_device)
     failing = [0, m // 2, m - 1]  # pivots: lanes 0, 1 and 2 fail there
     for lane, p in enumerate(failing):
         A[lane, p, p] = -5.0
     assert factor.uses_shared_memory(m) == (m <= 240)
+    assert factor.design(m) == ("smem" if m <= 240 else "panel_smem" if m <= 596
+                                else "panel_global")
     before = factor.launches
     L, Linv = factor.cholesky_and_inverse_kernel(A)
     L2, Linv2 = factor.cholesky_and_inverse_kernel(A)
@@ -327,6 +383,7 @@ def test_cuda_factor_matches_plain(cuda_device, shape):
     assert factor.launches == before + 2
     assert torch.equal(L.view(torch.int32), L2.view(torch.int32))
     assert torch.equal(Linv.view(torch.int32), Linv2.view(torch.int32))
+    assert torch.equal(L.view(torch.int32), ch.cholesky_recurrence(A).view(torch.int32))
     lower = torch.tril(torch.ones(m, m, dtype=torch.bool, device=cuda_device))
     n_bad = len(failing)
     for out in (L, Linv):
@@ -337,6 +394,8 @@ def test_cuda_factor_matches_plain(cuda_device, shape):
     Lp, Linvp = factor.cholesky_and_inverse_plain(A[n_bad:])
     assert _rel(L[n_bad:], Lp) <= 1e-4
     assert _rel(Linv[n_bad:], Linvp) <= 1e-4
+    eye = torch.eye(m, dtype=torch.float64, device=cuda_device)
+    assert float((L[n_bad:].double() @ Linv[n_bad:].double() - eye).abs().max()) <= 1e-5
 
 
 def test_cuda_kernel_gradients_match_cpu(cuda_device):

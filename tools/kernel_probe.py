@@ -12,7 +12,9 @@ Builds both checkouts' csrc/{cholesky,factor,trisolve,quad}.cu with the
 flags of ``spatial_alignment_tpu_torch/ops/_build.py`` and runs them on the
 same inputs at the shapes of the fits' paths. It raises when the two
 Cholesky, factor or solve results differ in any bit: these kernels'
-rounding is part of their contract (the header of csrc/common.cuh). The
+rounding is part of their contract (the header of csrc/common.cuh); only
+the fused factor's L^-1 above m = 240, which the panel design rounds as
+the shared-memory design does, is held to the plain version (rel 1e-4). The
 quad backward may round otherwise than an earlier design; each checkout's
 is held against ``quad_bwd_plain`` (rel 1e-4, the card tests' limit) and
 this checkout's two launches bit-equal. Then it times each in turns
@@ -38,12 +40,12 @@ sys.path.insert(0, str(ROOT))
 
 SOURCES = ("cholesky", "factor", "trisolve", "quad")
 TAGS = ("parent", "this")
-# Shapes on the fits' paths: the m = 200 final slab and jitter probe (two
-# rungs stacked), the 100k fit's m = 100 pair, the m = 50 pair, and the
-# global-memory variant (m = 256, off the paths).
+# Shapes on the fits' paths: the m = 200 and m = 384 final slabs and jitter
+# probes (two rungs stacked), the 100k fit's m = 100 pair, the m = 50 pair,
+# and the panel design at (2, 256, 256) and (4, 512, 512).
 CHOL_SHAPES = [(14, 200, 200), (4, 200, 200), (14, 100, 100), (4, 100, 100), (34, 50, 50),
-               (2, 50, 50), (2, 256, 256)]
-FACTOR_SHAPES = [(14, 200, 200), (34, 50, 50)]
+               (2, 50, 50), (2, 256, 256), (14, 384, 384), (4, 384, 384), (4, 512, 512)]
+FACTOR_SHAPES = [(14, 200, 200), (34, 50, 50), (4, 256, 256), (14, 384, 384)]
 # (L shape, B shape, trans); B None is the identity right-hand side (L^-1).
 SOLVES = [((1, 200, 200), (1, 200, 2), False), ((1, 200, 200), (1, 200, 2), True),
           ((200, 200), (200, 10), False), ((200, 200), (200, 10), True),
@@ -67,8 +69,12 @@ def build(out_dir: Path, csrc: Path, name: str, tag: str):
 def bind(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for fn, args in (("sat_cholesky_f32", [vp, vp, ll, i, vp]),
-                     ("sat_factor_f32", [vp, vp, vp, ll, i, vp]),
+    # Since the panel design the Cholesky and factor entries take a scratch
+    # pointer after their outputs (null while the panels fit shared memory).
+    scratch = [vp] if hasattr(lib, "sat_cholesky_scratch_floats") or hasattr(
+        lib, "sat_factor_scratch_floats") else []
+    for fn, args in (("sat_cholesky_f32", [vp, vp, *scratch, ll, i, vp]),
+                     ("sat_factor_f32", [vp, vp, vp, *scratch, ll, i, vp]),
                      ("sat_trisolve_f32", [vp, ll, vp, vp, ll, i, i, i, i, vp]),
                      ("sat_quad_bwd_splits", [i, i, i, i, i]),
                      ("sat_quad_bwd_design", [i, i, i, i, i, ctypes.POINTER(ll)])):
@@ -95,7 +101,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import bit_equal, median_ms, nvidia_smi, spd
+    from chip_smoke import bit_equal, median_ms, nvidia_smi, rel_err, spd
 
     out_dir = ROOT / "spatial_alignment_tpu_torch" / "_build" / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -132,6 +138,18 @@ def main() -> int:
             times[t].append(median_ms(fns[t]))
         return times
 
+    keep = []  # scratch buffers, alive while their launches run
+
+    def scratch(lib, query, B, m):
+        """A device pointer to the scratch the entry needs (0 when none)."""
+        fn = getattr(lib, query)
+        fn.argtypes, fn.restype = [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong
+        n = fn(B, m)
+        if n <= 0:
+            return 0
+        keep.append(torch.empty(n, device=dev))
+        return keep[-1].data_ptr()
+
     record = {"device": nvidia_smi(), "cholesky": [], "factor": [], "trisolve": []}
     for shape in CHOL_SHAPES:
         B, m = shape[0], shape[-1]
@@ -139,8 +157,11 @@ def main() -> int:
         outs = {t: [torch.empty_like(A)] for t in TAGS}
 
         def run(t):
-            return lambda: launched(libs[(t, "cholesky")].sat_cholesky_f32(
-                A.data_ptr(), outs[t][0].data_ptr(), B, m, stream()), f"cholesky {t}")
+            lib = libs[(t, "cholesky")]
+            extra = (scratch(lib, "sat_cholesky_scratch_floats", B, m),) if hasattr(
+                lib, "sat_cholesky_scratch_floats") else ()
+            return lambda: launched(lib.sat_cholesky_f32(
+                A.data_ptr(), outs[t][0].data_ptr(), *extra, B, m, stream()), f"cholesky {t}")
 
         fns = {t: run(t) for t in TAGS}
         for f in fns.values():
@@ -155,14 +176,29 @@ def main() -> int:
         outs = {t: [torch.empty_like(A), torch.empty_like(A)] for t in TAGS}
 
         def run(t):
-            return lambda: launched(libs[(t, "factor")].sat_factor_f32(
-                A.data_ptr(), outs[t][0].data_ptr(), outs[t][1].data_ptr(), B, m, stream()),
-                f"factor {t}")
+            lib = libs[(t, "factor")]
+            extra = (scratch(lib, "sat_factor_scratch_floats", B, m),) if hasattr(
+                lib, "sat_factor_scratch_floats") else ()
+            return lambda: launched(lib.sat_factor_f32(
+                A.data_ptr(), outs[t][0].data_ptr(), outs[t][1].data_ptr(), *extra, B, m,
+                stream()), f"factor {t}")
 
         fns = {t: run(t) for t in TAGS}
         for f in fns.values():
             f()
-        held(outs, f"factor {shape}")
+        if m <= 240:
+            held(outs, f"factor {shape}")
+        else:
+            # Above 240 the panel design's inverse rounds otherwise than the
+            # first design's (it multiplies by 1 / L_ii and by W_KK, as the
+            # shared-memory design does): L bit for bit, each L^-1 within
+            # rel 1e-4 of the plain version's.
+            held({t: outs[t][:1] for t in TAGS}, f"factor {shape}")
+            eye = torch.eye(m, device=dev).expand(A.shape)
+            Wp = torch.linalg.solve_triangular(torch.linalg.cholesky(A), eye, upper=False)
+            for t in TAGS:
+                if rel_err(outs[t][1], Wp) > 1e-4:
+                    raise AssertionError(f"factor {shape} {t}: L^-1 rel {rel_err(outs[t][1], Wp)}")
 
         def chain():
             Lc, _ = torch.linalg.cholesky_ex(A)
