@@ -46,7 +46,9 @@ m = 384; and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
              (640, 32), off the paths);
              then gram at every shape the forced 100k fits and predict() give
              it, for the three kernel kinds, against its plain version and
-             the expansion form, with the bfloat16 store
+             the expansion form, with the bfloat16 store, two launches
+             bit-equal, its row split, and beside its time an empty
+             kernel's, the floor of a launch
   fit_m200   the full-width slice: m = 200, N = 4,050, 10-latent LMC, 200 steps
   fit_m50    the m = 50 two-view grid, no LMC, 300 steps
   fit_m200_pallas  the same model and data as fit_m200 with the opt-ins,
@@ -55,7 +57,7 @@ m = 384; and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
   fit_m50_pallas   the m = 50 grid with the opt-ins, 100 steps (kl_inverse)
   fit_m384   fit_m200's data with m = 384 (the panel designs), 50 steps:
              2 Cholesky launches a step, no plain call, peak memory
-  fit_m384_pallas  the same model with the opt-ins, 20 steps: exact
+  fit_m384_pallas  the same model with the opt-ins, 50 steps: exact
              launches a step of every kernel, first loss beside fit_m384's
   predict    predict() and forward(S=5) on the m = 200 models
   fit_mb100k  the 100k-spot configuration of bench.py (two views of 50,000,
@@ -71,8 +73,8 @@ m = 384; and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
              Gram launches (16 data-layer chunks), finite (100000, .) outputs,
              aligned error below the data's
   profile    (with --profile DIR) device time per step by kernel over 10
-             steps of each m = 200 fit, of fit_m50_pallas and of the two
-             unchunked 100k fits,
+             steps of each m = 200 fit, of fit_m50_pallas, of both m = 384
+             fits and of the two unchunked 100k fits,
              the device's idle share, and the chrome traces in DIR
   ab_fit_m200  (with --profile DIR) steps/s of the two m = 200 fits in
              turns, default and opt-in, A B B A twice
@@ -459,14 +461,17 @@ def phase_gram(device, captured, peaks):
     for rbf and 3 * 1.4e-4 / (2 l^2) for matern32 (l >= e^-0.5: 2e-4 and
     6e-4; held at 1e-3), and by sqrt(1.4e-4) / (2 l) = 1e-2 for matern12,
     whose distance is the square root of the cancelled sum (held at 1e-2).
-    Then the bfloat16 store once (rel 2^-8, its spacing); median times of
-    kernel, plain version and expansion form beside the bound."""
+    Then the bfloat16 store once (rel 2^-8, its spacing); two launches
+    bit-equal; median times of kernel, plain version and expansion form
+    beside the bound and an empty kernel's time, the floor of any launch."""
     import torch
 
     gm = kernel_modules()[4]
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
     rows, bf16 = [], None
+    stream = torch.cuda.current_stream().cuda_stream
+    empty_ms = median_ms(lambda: gm._library().sat_empty_kernel(stream))
     for x1r, x2r, lsr, varr in captured:
         Kk, Kp = gm.gram_kernel(x1r, x2r, lsr, varr, "rbf"), gm.gram_plain(x1r, x2r, lsr, varr)
         torch.cuda.synchronize()
@@ -481,8 +486,10 @@ def phase_gram(device, captured, peaks):
         n_out = Kk.numel()
         b, by = bound_ms(4 * (x1.numel() + x2.numel() + ls.numel() + var.numel() + n_out),
                          n_out * (3 * x1.shape[-1] + 6), peaks)
+        G = math.prod(Kk.shape[:-2])
         for kind in GRAM_KINDS:
             Kk = gm.gram_kernel(x1, x2, ls, var, kind)
+            K2 = gm.gram_kernel(x1, x2, ls, var, kind)
             Kp = gm.gram_plain(x1, x2, ls, var, kind)
             Ke = gm.gram(x1, x2, ls, var, kind, force=False)
             K64 = gm.gram_plain(x1.double(), x2.double(), ls.double(), var.double(), kind)
@@ -492,6 +499,7 @@ def phase_gram(device, captured, peaks):
             check(rel_p <= 1e-5, f"gram {kind} {tuple(x2.shape)}: rel vs plain {rel_p}")
             check(rel_64 <= 1e-6, f"gram {kind} {tuple(x2.shape)}: rel vs float64 {rel_64}")
             check(rel_e <= tol_e, f"gram {kind} {tuple(x2.shape)}: rel vs expansion {rel_e}")
+            check(bit_equal(Kk, K2), f"gram {kind} {tuple(x2.shape)}: two launches differ")
             if bf16 is None:
                 Kb = gm.gram_kernel(x1, x2, ls, var, kind, out_dtype=torch.bfloat16)
                 Kbp = gm.gram_plain(x1, x2, ls, var, kind, out_dtype=torch.bfloat16)
@@ -509,6 +517,8 @@ def phase_gram(device, captured, peaks):
                 "kernel_ms": median_ms(lambda: gm.gram_kernel(x1, x2, ls, var, kind)),
                 "plain_ms": median_ms(lambda: gm.gram_plain(x1, x2, ls, var, kind)),
                 "expansion_ms": median_ms(lambda: gm.gram(x1, x2, ls, var, kind, force=False)),
+                "empty_kernel_ms": empty_ms, "bit_equal_twice": True,
+                "design": gm.design(G, Kk.shape[-2], Kk.shape[-1]),
                 "library_ms": None, "bound_ms": b, "bound_by": by})
     return {"gram": rows, "gram_bf16": bf16}
 
@@ -972,7 +982,7 @@ def phase_new_kernels(device, captured, peaks):
                 "rel_vs_plain_random": rel_rand,
                 "max_abs_err": max(float((dxk - dxp).abs().max()), float((dFk - dFp).abs().max())),
                 "bit_equal_twice": True,
-                # Above m = 256 (no column tiles) the first design runs, in fp32.
+                # Above m = 512 (no column tiles) the first design runs, in fp32.
                 "products": ("3xTF32 mma.sync m16n8k8" if list(design.values())[0]
                              else "fp32 tiles (first design)"),
                 "design": design,
@@ -1258,7 +1268,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", type=Path,
                         help="also profile 10 steps of each m = 200 fit, of the opt-in m = 50 "
-                             "fit and of the two unchunked 100k fits (device time by kernel), "
+                             "fit, of both m = 384 fits and of the two unchunked 100k fits "
+                             "(device time by kernel), "
                              "write the chrome "
                              "traces into DIR, and time the two m = 200 fits in turns "
                              "(A B B A)")
@@ -1412,7 +1423,7 @@ def main() -> int:
     check(ch.design(384) != "smem" and fc.design(384) != "smem",
           "m = 384: expected the panel designs")
     fit384 = phase_fit("fit_m384", model384, 50, 5, "mixed", DEFAULT_PER_STEP)
-    fit384_p = phase_fit("fit_m384_pallas", model384_p, 20, 5, "mixed", OPTIN_PER_STEP)
+    fit384_p = phase_fit("fit_m384_pallas", model384_p, 50, 5, "mixed", OPTIN_PER_STEP)
     rel384 = abs(fit384_p["losses"][0] - fit384["losses"][0]) / abs(fit384["losses"][0])
     check(rel384 <= 1e-3, f"fit_m384_pallas: first loss rel {rel384} vs fit_m384")
     emit("fit_m384_pallas_vs_fit_m384", first_loss_rel=rel384,
@@ -1484,6 +1495,8 @@ def main() -> int:
         phase_profile("fit_m200", model, args.profile)
         phase_profile("fit_m200_pallas", model_p, args.profile)
         phase_profile("fit_m50_pallas", model50_p, args.profile)
+        phase_profile("fit_m384", model384, args.profile)
+        phase_profile("fit_m384_pallas", model384_p, args.profile)
         phase_ab({"A": model, "B": model_p})
         phase_profile("fit_mb100k", model_mb, args.profile, minibatch_size=MB_B)
         with forced_gram():

@@ -57,7 +57,8 @@
 // The backward, quad_bwd_tc_kernel (replaces _bwd_pallas / _bwd_body).
 // What bounds it: operations. t is a product of the forward's size, and dx
 // and dF are two more: 3 x 2 G N L m^2 (4.9e10 at the data layer, 0.73 ms on
-// the fp32 pipes); in 3xTF32 on the tensor cores, 0.30 ms at the TF32 peak.
+// the fp32 pipes); in 3xTF32 on the tensor cores, 0.30 ms at the TF32 peak
+// (at m = 384: 1.8e11, 1.09 ms).
 // Both outputs take the same shape of work, two chained products a chunk,
 // as attention does (S = Q K^T, P = f(S), O += P V):
 //
@@ -66,15 +67,16 @@
 //                                  S^T = F_b[:, k]^T x[c, :]^T
 //                                  w^T = 2 dy[c] S^T   dF_b^T += w^T x[c, :]
 //
-// A block of 8 warps keeps its 128 rows' operand resident in shared memory
-// (x's rows for dx, a 128-column slab of F_b for dF) and streams chunks of 32
+// A block of 8 warps keeps its R rows' operand resident in shared memory
+// (x's rows for dx, an R-column slab of F_b for dF) and streams chunks of 32
 // (columns k of one channel's F_b for dx; points for dF), three buffers deep
 // by cp.async (two where three do not fit, m > 200), one barrier a chunk;
-// 16-byte copies when m is a multiple of 4. Per chunk each warp makes its
-// 16 x 32 tile of t in registers (3xTF32 mma.sync m16n8k8, as the forward),
-// scales it by 2 dy in the epilogue, splits it once into TF32 high and low
-// parts, and feeds it, still in registers, as the A operand of the second
-// product into a 16 x m accumulator (up to m = 256, 128 registers). The
+// 16-byte copies when m is a multiple of 4. Up to m = 256, R = 128 and each
+// warp owns 16 rows: per chunk it makes its 16 x 32 tile of t in registers
+// (3xTF32 mma.sync m16n8k8, as the forward), scales it by 2 dy in the
+// epilogue, splits it once into TF32 high and low parts, and feeds it, still
+// in registers, as the A operand of the second product into a 16 x m
+// accumulator (m / 2 registers a lane, 128 at m = 256). The
 // accumulator layout of an mma tile holds columns 2 tig and 2 tig + 1 where
 // an A fragment wants tig and tig + 4; the second product sums over those
 // columns, so it takes them in that order and reads its B operand (the same
@@ -89,6 +91,26 @@
 // spilling at m = 200); two accumulators for t's high and cross terms, and
 // fragments read a step ahead (slower: ptxas already schedules the unrolled
 // body).
+//   Above m = 256 a warp's accumulator would take more than 128 registers
+// (192 at m = 384), and 128 resident rows of x (199 KB at m = 384) or a
+// 128-column F slab (209 KB) leave no room for a chunk. So R = 64: two warps
+// share each group of 16 rows, each keeping half of the accumulator's
+// columns (96 registers at m = 384) and making half of each chunk's tiles of
+// t (16 of its 32 columns). They swap w = 2 dy t through shared memory, lane
+// to lane in fragment order (8 KB a block), behind one named barrier of the
+// pair a chunk (bar.sync 1 + row group, 64 threads), so t is still made
+// twice, once a pass. At m = 384 the x tile takes 99 KB and two F chunks
+// 123 KB (dx); the F slab 111 KB and two x chunks 100 KB (dF). Up to
+// m = 512 the same design runs with one chunk buffer (no copy in flight
+// while a chunk is used: two barriers a chunk). With two tiles of t a warp,
+// each tile's first product runs as two chains, the even and the odd depth
+// steps of 8, added at the end (1-2 % faster at m = 384 than one chain).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, tools/
+// kernel_probe.py): 4.19 ms at the m = 384 data layer, x (5, 4050, 384),
+// F (10, 384, 384), against the first design's 36.3 and the plain
+// version's 4.83. Issuing 8 second-product tiles together instead of 4
+// made no difference; unrolling the depth loop 2 times instead of 4 was 6 %
+// slower.
 //   The sums over chunks run in a fixed order inside a block. To fill the
 // card, the chunks (channel, column block) of dx and the points of dF are
 // split over `splits` blocks, each writing its partial sum, and
@@ -100,7 +122,7 @@
 // for every (channel, column block), 1.1 GB at the data layer, or float
 // atomics. So t is made twice, 4 products instead of 3.
 //
-// Above m = 256 the accumulator and the resident tile outgrow a block, and
+// Above m = 512 the accumulator and the resident tile outgrow a block, and
 // the first design runs (the wide variant, off every path the repo runs):
 // 64 x 64 tiles of t on the plain fp32 pipes, 256 threads with a 4 x 4
 // register tile each, x and F staged 16 deep,
@@ -672,61 +694,83 @@ __global__ void quad_sum_kernel(const float* __restrict__ partial, float* __rest
 
 constexpr int BWARPS = 8;            // warps of a backward block
 constexpr int BTHREADS = BWARPS * 32;
-constexpr int BR = BWARPS * 16;      // rows of the resident tile, 16 a warp
 constexpr int BC = 32;               // depth of a chunk: columns of t (dx), points (dF)
 constexpr int BNT = BC / 8;          // mma column tiles of t in a chunk
 constexpr int BFD = BC + 8;          // padded row of dx's F chunk, = 8 mod 16
-constexpr int BFF = BR + 8;          // padded row of dF's F slab, = 8 mod 16
-constexpr int kMaxBwdM = 256;        // widest m of the tensor-core backward
+constexpr int kMaxBwdM = 512;        // widest m of the tensor-core backward
 constexpr int kMaxBlockSmem = 232448;  // bytes of shared memory a block may have
 
 // NI mma column tiles of 8 cover the m columns of the accumulator: IP = 8 NI
-// >= m. x rows are padded to XS = IP + 4 floats (= 4 mod 8).
-template <bool DF, int NI>
+// >= m. P warps share a group of 16 rows, each keeping NI / P of the
+// accumulator's column tiles and making BNT / P of each chunk's tiles of t:
+// R = 16 * BWARPS / P resident rows. x rows are padded to XS = IP + 4
+// floats (= 4 mod 8), rows of dF's F slab to FF = R + 8 (= 8 mod 16).
+template <bool DF, int NI, int P>
 struct Bwd {
   static constexpr int IP = NI * 8;
   static constexpr int XS = IP + 4;
+  static constexpr int R = BWARPS / P * 16;
+  static constexpr int FF = R + 8;
+  static constexpr int NW = NI / P;   // accumulator column tiles a warp
+  static constexpr int TW = BNT / P;  // tiles of t a warp makes a chunk
   // The resident tile, then the chunk buffers, each followed by its 2 dy
-  // values (BR of them for dx: one per row; BC for dF: one per point):
-  // three when they fit in a block's shared memory (two chunks in flight
-  // while one is used), else two.
-  static constexpr int kResident = DF ? IP * BFF : BR * XS;
-  static constexpr int kChunk = (DF ? BC * XS : IP * BFD) + (DF ? BC : BR);
-  static constexpr int kStages = (kResident + 3 * kChunk) * 4 <= kMaxBlockSmem ? 3 : 2;
-  static constexpr size_t kSmem = (size_t)(kResident + kStages * kChunk) * sizeof(float);
+  // values (R of them for dx: one per row; BC for dF: one per point), then
+  // (P > 1) the exchange of w, [row group][tile of t][lane][4]. Three
+  // buffers when they fit in a block's shared memory (two chunks in flight
+  // while one is used), else two, else one.
+  static constexpr int kResident = DF ? IP * FF : R * XS;
+  static constexpr int kChunk = (DF ? BC * XS : IP * BFD) + (DF ? BC : R);
+  static constexpr int kSwap = P > 1 ? BWARPS / P * BNT * 128 : 0;
+  static constexpr int kStages = (kResident + 3 * kChunk + kSwap) * 4 <= kMaxBlockSmem   ? 3
+                                 : (kResident + 2 * kChunk + kSwap) * 4 <= kMaxBlockSmem ? 2
+                                                                                         : 1;
+  static constexpr size_t kSmem = (size_t)(kResident + kStages * kChunk + kSwap) * sizeof(float);
+  static_assert(NI % P == 0 && BNT % P == 0, "the warps of a row group split evenly");
+  static_assert(kSmem <= kMaxBlockSmem, "one chunk buffer must fit");
 };
 
 // mma tiles of the second product issued together: independent accumulators
 // between two that depend on each other.
 constexpr int kGroup = 4;
 
-// One chunk for warp `warp`: s = A . B over depth m8 (BNT column tiles of
-// 8), w = 2 dy s, acc += w . B^T. A is the resident tile (dx: x [row][i],
-// ld XS; dF: F slab [i][row], ld BFF); B the chunk (dx: F chunk [i][c], ld
-// BFD; dF: x chunk [c][i], ld XS); dys the chunk's dy values. Only the
-// first `nv` column tiles of the chunk hold data (columns past m, points
-// past the range): FULL chunks (nv == BNT) run without a condition around
-// an mma, the last one skips the empty tiles.
-template <bool DF, int NI, bool FULL>
+// w's TF32 parts of one tile of t as an A fragment, from the 4 values w.
+__device__ __forceinline__ void split4(const float (&w)[4], unsigned (&hi)[4], unsigned (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(w[e], hi[e], lo[e]);
+}
+
+// One chunk for the warp `h` of row group `rg`: s = A . B over depth m8 for
+// the warp's TW column tiles of 8, w = 2 dy s, acc += w . B^T over the
+// warp's NW accumulator column tiles. A is the resident tile (dx: x
+// [row][i], ld XS; dF: F slab [i][row], ld FF); B the chunk (dx: F chunk
+// [i][c], ld BFD; dF: x chunk [c][i], ld XS); dys the chunk's dy values;
+// swap the exchange of w (P > 1). Only the first `nv` column tiles of the
+// chunk hold data (columns past m, points past the range): FULL chunks
+// (nv == BNT) run without a condition around an mma, the last one skips
+// the empty tiles.
+template <bool DF, int NI, int P, bool FULL>
 __device__ __forceinline__ void bwd_chunk(const float* As, const float* Bs, const float* dys,
-                                          int m8, int nv, int warp, int gid, int tig,
-                                          float (&acc)[NI][4]) {
-  using T = Bwd<DF, NI>;
-  float s[BNT][4];
+                                          float* swap, int m8, int nv, int rg, int h, int gid,
+                                          int tig, int lane, float (&acc)[NI / P][4]) {
+  using T = Bwd<DF, NI, P>;
+  constexpr int TW = T::TW;
+  constexpr int NW = T::NW;
+  const int t0 = h * TW;  // the warp's first column tile of t
+  float s[TW][4];
 #pragma unroll
-  for (int nt = 0; nt < BNT; ++nt)
+  for (int q = 0; q < TW; ++q)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-  const int r = warp * 16 + gid;
-#pragma unroll 4
-  for (int kk = 0; kk < m8; kk += 8) {
-    float a[4], b[BNT][2];
+    for (int e = 0; e < 4; ++e) s[q][e] = 0.0f;
+  const int r = rg * 16 + gid;
+  // s += A . B over the depth step kk..kk+8, into sa.
+  auto step = [&](int kk, float (&sa)[TW][4]) {
+    float a[4], b[TW][2];
     if (DF) {
-      const float* p = As + (kk + tig) * BFF + r;
+      const float* p = As + (kk + tig) * T::FF + r;
       a[0] = p[0];
       a[1] = p[8];
-      a[2] = p[4 * BFF];
-      a[3] = p[4 * BFF + 8];
+      a[2] = p[4 * T::FF];
+      a[3] = p[4 * T::FF + 8];
     } else {
       const float* p = As + r * T::XS + kk + tig;
       a[0] = p[0];
@@ -735,33 +779,56 @@ __device__ __forceinline__ void bwd_chunk(const float* As, const float* Bs, cons
       a[3] = p[8 * T::XS + 4];
     }
 #pragma unroll
-    for (int nt = 0; nt < BNT; ++nt) {
+    for (int q = 0; q < TW; ++q) {
+      const int nt = t0 + q;
       if (DF) {
-        const float* q = Bs + (nt * 8 + gid) * T::XS + kk + tig;
-        b[nt][0] = q[0];
-        b[nt][1] = q[4];
+        const float* p = Bs + (nt * 8 + gid) * T::XS + kk + tig;
+        b[q][0] = p[0];
+        b[q][1] = p[4];
       } else {
-        const float* q = Bs + (kk + tig) * BFD + nt * 8 + gid;
-        b[nt][0] = q[0];
-        b[nt][1] = q[4 * BFD];
+        const float* p = Bs + (kk + tig) * BFD + nt * 8 + gid;
+        b[q][0] = p[0];
+        b[q][1] = p[4 * BFD];
       }
     }
-    unsigned ahi[4], alo[4], bhi[BNT][2], blo[BNT][2];
+    unsigned ahi[4], alo[4], bhi[TW][2], blo[TW][2];
 #pragma unroll
     for (int e = 0; e < 4; ++e) split_tf32(a[e], ahi[e], alo[e]);
 #pragma unroll
-    for (int nt = 0; nt < BNT; ++nt)
+    for (int q = 0; q < TW; ++q)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) split_tf32(b[nt][e], bhi[nt][e], blo[nt][e]);
+      for (int e = 0; e < 2; ++e) split_tf32(b[q][e], bhi[q][e], blo[q][e]);
 #pragma unroll
-    for (int nt = 0; nt < BNT; ++nt)
-      if (FULL || nt < nv) mma_tf32(s[nt], alo, bhi[nt]);
+    for (int q = 0; q < TW; ++q)
+      if (FULL || t0 + q < nv) mma_tf32(sa[q], alo, bhi[q]);
 #pragma unroll
-    for (int nt = 0; nt < BNT; ++nt)
-      if (FULL || nt < nv) mma_tf32(s[nt], ahi, blo[nt]);
+    for (int q = 0; q < TW; ++q)
+      if (FULL || t0 + q < nv) mma_tf32(sa[q], ahi, blo[q]);
 #pragma unroll
-    for (int nt = 0; nt < BNT; ++nt)
-      if (FULL || nt < nv) mma_tf32(s[nt], ahi, bhi[nt]);
+    for (int q = 0; q < TW; ++q)
+      if (FULL || t0 + q < nv) mma_tf32(sa[q], ahi, bhi[q]);
+  };
+  if (P == 1) {
+#pragma unroll 4
+    for (int kk = 0; kk < m8; kk += 8) step(kk, s);
+  } else {
+    // Half the tiles a warp: two chains a tile, the even and the odd depth
+    // steps, added at the end (the resident tile and the chunk are
+    // zero-filled to IP >= m rounded up to 16).
+    float s2[TW][4];
+#pragma unroll
+    for (int q = 0; q < TW; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s2[q][e] = 0.0f;
+#pragma unroll 2
+    for (int kk = 0; kk < m8; kk += 16) {
+      step(kk, s);
+      step(kk + 8, s2);
+    }
+#pragma unroll
+    for (int q = 0; q < TW; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[q][e] += s2[q][e];
   }
   // w = 2 dy t. The tile's lane holds rows gid, gid + 8 and columns 2 tig,
   // 2 tig + 1; as an A fragment of the second product, whose depth is those
@@ -769,38 +836,54 @@ __device__ __forceinline__ void bwd_chunk(const float* As, const float* Bs, cons
   // w[gid][2tig+1], w[gid+8][2tig+1]).
   unsigned whi[BNT][4], wlo[BNT][4];
 #pragma unroll
-  for (int nt = 0; nt < BNT; ++nt) {
+  for (int q = 0; q < TW; ++q) {
+    const int nt = t0 + q;
     float w[4];
     if (DF) {
       const float d0 = 2.0f * dys[nt * 8 + 2 * tig];
       const float d1 = 2.0f * dys[nt * 8 + 2 * tig + 1];
-      w[0] = d0 * s[nt][0];
-      w[1] = d0 * s[nt][2];
-      w[2] = d1 * s[nt][1];
-      w[3] = d1 * s[nt][3];
+      w[0] = d0 * s[q][0];
+      w[1] = d0 * s[q][2];
+      w[2] = d1 * s[q][1];
+      w[3] = d1 * s[q][3];
     } else {
       const float d0 = 2.0f * dys[r];
       const float d1 = 2.0f * dys[r + 8];
-      w[0] = d0 * s[nt][0];
-      w[1] = d1 * s[nt][2];
-      w[2] = d0 * s[nt][1];
-      w[3] = d1 * s[nt][3];
+      w[0] = d0 * s[q][0];
+      w[1] = d1 * s[q][2];
+      w[2] = d0 * s[q][1];
+      w[3] = d1 * s[q][3];
     }
+    if (P == 1)
+      split4(w, whi[q], wlo[q]);
+    else
+      *reinterpret_cast<float4*>(swap + ((rg * BNT + nt) * 32 + lane) * 4) =
+          make_float4(w[0], w[1], w[2], w[3]);
+  }
+  if (P > 1) {
+    // Every tile of w, the partners' and this warp's own, lane by lane from
+    // the exchange once the row group's warps have written theirs.
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "n"(P * 32) : "memory");
 #pragma unroll
-    for (int e = 0; e < 4; ++e) split_tf32(w[e], whi[nt][e], wlo[nt][e]);
+    for (int j = 0; j < BNT; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(swap + ((rg * BNT + j) * 32 + lane) * 4);
+      const float w[4] = {v.x, v.y, v.z, v.w};
+      split4(w, whi[j], wlo[j]);
+    }
   }
   // acc[:, i] += sum_c w[:, c] B[i][c]; B fragment of column tile ni, depth
   // step j: (B[8 ni + gid][8 j + 2 tig], B[8 ni + gid][8 j + 2 tig + 1]).
+  const int i0 = h * NW * 8 + gid;  // the warp's first accumulator column, + gid
 #pragma unroll
   for (int j = 0; j < BNT; ++j) {
     if (!FULL && j >= nv) break;
 #pragma unroll
-    for (int n0 = 0; n0 < NI; n0 += kGroup) {
+    for (int n0 = 0; n0 < NW; n0 += kGroup) {
       unsigned bh[kGroup][2], bl[kGroup][2];
 #pragma unroll
       for (int q = 0; q < kGroup; ++q) {
-        if (n0 + q < NI) {
-          const int i = (n0 + q) * 8 + gid;
+        if (n0 + q < NW) {
+          const int i = i0 + (n0 + q) * 8;
           float v0, v1;
           if (DF) {
             v0 = Bs[(j * 8 + 2 * tig) * T::XS + i];
@@ -816,37 +899,41 @@ __device__ __forceinline__ void bwd_chunk(const float* As, const float* Bs, cons
       }
 #pragma unroll
       for (int q = 0; q < kGroup; ++q)
-        if (n0 + q < NI) mma_tf32(acc[n0 + q], wlo[j], bh[q]);
+        if (n0 + q < NW) mma_tf32(acc[n0 + q], wlo[j], bh[q]);
 #pragma unroll
       for (int q = 0; q < kGroup; ++q)
-        if (n0 + q < NI) mma_tf32(acc[n0 + q], whi[j], bl[q]);
+        if (n0 + q < NW) mma_tf32(acc[n0 + q], whi[j], bl[q]);
 #pragma unroll
       for (int q = 0; q < kGroup; ++q)
-        if (n0 + q < NI) mma_tf32(acc[n0 + q], whi[j], bh[q]);
+        if (n0 + q < NW) mma_tf32(acc[n0 + q], whi[j], bh[q]);
     }
   }
 }
 
-// dx: grid (ceil(N / BR), splits, G). Block (tile, split, g) owns the BR
-// points tile * BR ... of group g and the chunks [j0, j1) of the L * nkc
+// dx: grid (ceil(N / R), splits, G). Block (tile, split, g) owns the R
+// points tile * R ... of group g and the chunks [j0, j1) of the L * nkc
 // (channel, column block) chunks, in order; it writes its partial sum of dx
-// to out + split * out_split. dF: grid (ceil(m / BR), L, splits * n_groups).
-// Block (kt, b, split * n_groups + fg) owns columns kt * BR ... of dF_b for
+// to out + split * out_split. dF: grid (ceil(m / R), L, splits * n_groups).
+// Block (kt, b, split * n_groups + fg) owns columns kt * R ... of dF_b for
 // factor group fg over the flat rows [lo, hi) of x viewed as (G N, m) (the
 // group's rows, split in ranges of `per` chunks of BC), and writes its
 // partial sum to out + (split * n_groups + fg) * L m^2 + b m^2.
-template <bool DF, int NI, int VEC>
+template <bool DF, int NI, int P, int VEC>
 __global__ void __launch_bounds__(BTHREADS, 1)
 quad_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ F,
                    long long f_gstride, const float* __restrict__ dy, float* __restrict__ out,
                    long long out_split, int N, int m, int L, int n_groups, long long rows_fg,
                    int per) {
-  using T = Bwd<DF, NI>;
+  using T = Bwd<DF, NI, P>;
+  constexpr int R = T::R;
   extern __shared__ float4 bwd_smem4[];
   float* smem = reinterpret_cast<float*>(bwd_smem4);
   float* As = smem;
+  float* swap = smem + T::kResident + T::kStages * T::kChunk;
   const int tid = threadIdx.x;
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int rg = warp / P;  // row group
+  const int h = warp % P;   // the warp's share of the row group's columns
   const int lane = tid % 32;
   const int gid = lane / 4;
   const int tig = lane % 4;
@@ -858,7 +945,7 @@ quad_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ F,
   long long lo = 0, hi = 0;
   const float* Fb = F;
   if (DF) {
-    k0 = blockIdx.x * BR;
+    k0 = blockIdx.x * R;
     b = blockIdx.y;
     fg = blockIdx.z % n_groups;
     split = blockIdx.z / n_groups;
@@ -867,22 +954,22 @@ quad_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ F,
     j0 = 0;
     j1 = hi > lo ? (int)((hi - lo + BC - 1) / BC) : 0;
     Fb = F + fg * f_gstride + (size_t)b * m * m;
-    for (int t = tid; t < T::IP * BR / VEC; t += BTHREADS) {
-      const int i = t / (BR / VEC);
-      const int k = t % (BR / VEC) * VEC;
+    for (int t = tid; t < T::IP * R / VEC; t += BTHREADS) {
+      const int i = t / (R / VEC);
+      const int k = t % (R / VEC) * VEC;
       const bool ok = i < m && k0 + k < m;
-      cp_async<4 * VEC>(As + i * BFF + k, ok ? Fb + (size_t)i * m + k0 + k : Fb,
+      cp_async<4 * VEC>(As + i * T::FF + k, ok ? Fb + (size_t)i * m + k0 + k : Fb,
                         ok ? 4 * VEC : 0);
     }
   } else {
-    n0 = blockIdx.x * BR;
+    n0 = blockIdx.x * R;
     split = blockIdx.y;
     g = blockIdx.z;
-    nrows = min(BR, N - n0);
+    nrows = min(R, N - n0);
     j0 = split * per;
     j1 = min(j0 + per, L * nkc);
     const float* xg = x + ((size_t)g * N + n0) * m;
-    for (int t = tid; t < BR * T::IP / VEC; t += BTHREADS) {
+    for (int t = tid; t < R * T::IP / VEC; t += BTHREADS) {
       const int r = t / (T::IP / VEC);
       const int i = t % (T::IP / VEC) * VEC;
       const bool ok = r < nrows && i < m;
@@ -921,7 +1008,7 @@ quad_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ F,
         cp_async<4 * VEC>(Bs + i * BFD + c, ok ? Fj + (size_t)i * m + c0 + c : Fj,
                           ok ? 4 * VEC : 0);
       }
-      if (tid < BR) {
+      if (tid < R) {
         const bool ok = tid < nrows;
         const float* src = dy + ((size_t)g * L + bj) * N + n0 + (ok ? tid : 0);
         cp_async<4>(ds + tid, src, ok ? 4 : 0);
@@ -929,13 +1016,13 @@ quad_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ F,
     }
   };
 
-  float acc[NI][4];
+  float acc[T::NW][4];
 #pragma unroll
-  for (int ni = 0; ni < NI; ++ni)
+  for (int ni = 0; ni < T::NW; ++ni)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[ni][e] = 0.0f;
-  // A warp whose 16 rows all lie past the edge only stages and waits.
-  const bool active = DF ? k0 + warp * 16 < m : warp * 16 < nrows;
+  // A row group whose 16 rows all lie past the edge only stages and waits.
+  const bool active = DF ? k0 + rg * 16 < m : rg * 16 < nrows;
   constexpr int S = T::kStages;
 #pragma unroll
   for (int q = 0; q < S - 1; ++q) {
@@ -943,44 +1030,56 @@ quad_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ F,
     cp_async_commit();
   }
   for (int j = j0; j < j1; ++j) {
-    cp_async_wait<S - 2>();
-    // Chunk j (and the resident tile) has landed for every thread, and every
-    // warp is done with chunk j - 1, whose buffer takes chunk j + S - 1.
-    __syncthreads();
-    if (j + S - 1 < j1) load(j + S - 1, (j + S - 1 - j0) % S);
-    cp_async_commit();
+    if constexpr (S == 1) {
+      // One buffer: every warp is done with chunk j - 1 before chunk j
+      // (and, the first time, the resident tile) is staged and awaited.
+      __syncthreads();
+      load(j, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      cp_async_wait<S - 2>();
+      // Chunk j (and the resident tile) has landed for every thread, and
+      // every warp is done with chunk j - 1, whose buffer takes chunk j + S - 1.
+      __syncthreads();
+      if (j + S - 1 < j1) load(j + S - 1, (j + S - 1 - j0) % S);
+      cp_async_commit();
+    }
     const float* Bs = smem + T::kResident + ((j - j0) % S) * T::kChunk;
     // Column tiles of this chunk that hold data (columns < m; points < hi).
     const int nv = DF ? (int)min((long long)BNT, (hi - lo - (long long)j * BC + 7) / 8)
                       : min(BNT, (m - (j % nkc) * BC + 7) / 8);
     const float* ds = Bs + (DF ? BC * T::XS : T::IP * BFD);
     if (active && nv == BNT)
-      bwd_chunk<DF, NI, true>(As, Bs, ds, m8, nv, warp, gid, tig, acc);
+      bwd_chunk<DF, NI, P, true>(As, Bs, ds, swap, m8, nv, rg, h, gid, tig, lane, acc);
     else if (active)
-      bwd_chunk<DF, NI, false>(As, Bs, ds, m8, nv, warp, gid, tig, acc);
+      bwd_chunk<DF, NI, P, false>(As, Bs, ds, swap, m8, nv, rg, h, gid, tig, lane, acc);
   }
   cp_async_wait<0>();
 
-  // Rows warp * 16 + gid (+ 8), columns 8 ni + 2 tig (+ 1) of the accumulator.
-  const int r = warp * 16 + gid;
+  // Rows rg * 16 + gid (+ 8), columns 8 (h NW + ni) + 2 tig (+ 1) of the
+  // accumulator.
+  const int r = rg * 16 + gid;
+  const int c0 = h * T::NW * 8 + 2 * tig;
   if (DF) {
     float* o = out + (size_t)(split * n_groups + fg) * out_split + (size_t)b * m * m;
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
+    for (int ni = 0; ni < T::NW; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int k = k0 + r + (e >> 1) * 8;
-        const int i = ni * 8 + 2 * tig + (e & 1);
+        const int i = c0 + ni * 8 + (e & 1);
         if (k < m && i < m) o[(size_t)i * m + k] = acc[ni][e];
       }
   } else {
     float* o = out + (size_t)split * out_split + ((size_t)g * N + n0) * m;
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
+    for (int ni = 0; ni < T::NW; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int n = r + (e >> 1) * 8;
-        const int i = ni * 8 + 2 * tig + (e & 1);
+        const int i = c0 + ni * 8 + (e & 1);
         if (n < nrows && i < m) o[(size_t)n * m + i] = acc[ni][e];
       }
   }
@@ -1044,12 +1143,17 @@ long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
 
 // The tensor-core backward's column tiles for m (0 above kMaxBwdM: the wide
-// variant). 25 covers m = 200 exactly.
+// variant). 25 covers m = 200 exactly; 48 (m <= 384) and 64 split each row
+// group's columns over two warps.
 int bwd_ni(int m) {
   if (m > kMaxBwdM) return 0;
   const int c = (m + 7) / 8;
-  return c <= 8 ? 8 : c <= 16 ? 16 : c <= 25 ? 25 : 32;
+  return c <= 8 ? 8 : c <= 16 ? 16 : c <= 25 ? 25 : c <= 32 ? 32 : c <= 48 ? 48 : 64;
 }
+
+// Warps that share a row group at NI column tiles: two where one warp's
+// accumulator (NI / 2 registers a lane) would not leave room for the rest.
+constexpr int bwd_p(int ni) { return ni > 32 ? 2 : 1; }
 
 // The fewest waves of blocks per unit of work: `base` blocks, each of whose
 // `items` chunks may be split over up to `cap` blocks, `slots` blocks
@@ -1073,6 +1177,8 @@ int pick_splits(long long base, long long items, long long slots, long long cap)
 // What the backward launches at these sizes.
 struct BwdPlan {
   int ni = 0;                  // column tiles (0: the wide variant)
+  int p = 1, rows = TN;        // warps a row group, rows of a block
+  int stages_dx = 0, stages_df = 0;  // chunk buffers of each kernel
   int occ_dx = 0, occ_df = 0;  // blocks an SM
   int sx = 1, per_x = 0;       // dx: splits of the L * nkc chunks, chunks a split
   int sf = 1, per_f = 0;       // dF: splits of a group's rows, chunks of BC a split
@@ -1087,12 +1193,19 @@ using BwdKernel = void (*)(const float*, const float*, long long, const float*, 
 
 template <int NI>
 void plan_tc(BwdPlan& p, int G, int N, int m, int L, int n_groups) {
-  using X = Bwd<false, NI>;
-  using D = Bwd<true, NI>;
+  constexpr int P = bwd_p(NI);
+  using X = Bwd<false, NI, P>;
+  using D = Bwd<true, NI, P>;
+  constexpr int R = X::R;
+  p.p = P;
+  p.rows = R;
+  p.stages_dx = X::kStages;
+  p.stages_df = D::kStages;
   const int sms = device_attr(cudaDevAttrMultiProcessorCount);
   // Both copy widths take the same shared memory.
-  const BwdKernel kernels[4] = {quad_bwd_tc_kernel<false, NI, 1>, quad_bwd_tc_kernel<false, NI, 4>,
-                                quad_bwd_tc_kernel<true, NI, 1>, quad_bwd_tc_kernel<true, NI, 4>};
+  const BwdKernel kernels[4] = {
+      quad_bwd_tc_kernel<false, NI, P, 1>, quad_bwd_tc_kernel<false, NI, P, 4>,
+      quad_bwd_tc_kernel<true, NI, P, 1>, quad_bwd_tc_kernel<true, NI, P, 4>};
   cudaError_t e = cudaSuccess;
   for (int k = 0; k < 4 && e == cudaSuccess; ++k)
     e = cudaFuncSetAttribute(kernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1107,14 +1220,14 @@ void plan_tc(BwdPlan& p, int G, int N, int m, int L, int n_groups) {
   }
   const long long items_x = (long long)L * ceil_div(m, BC);
   const long long dx_floats = (long long)G * N * m;
-  p.sx = pick_splits(ceil_div(N, BR) * G, items_x, (long long)p.occ_dx * sms,
+  p.sx = pick_splits(ceil_div(N, R) * G, items_x, (long long)p.occ_dx * sms,
                      std::max(1LL, std::min(64LL, kMaxPartialFloats / dx_floats)));
   p.per_x = (int)ceil_div(items_x, p.sx);
   p.scratch_x = p.sx > 1 ? p.sx * dx_floats : 0;
   const long long rows_fg = (long long)G * N / n_groups;
   const long long chunks = ceil_div(rows_fg, BC);
   const long long df_floats = (long long)n_groups * L * m * m;
-  p.sf = pick_splits(ceil_div(m, BR) * L * n_groups, chunks, (long long)p.occ_df * sms,
+  p.sf = pick_splits(ceil_div(m, R) * L * n_groups, chunks, (long long)p.occ_df * sms,
                      std::max(1LL, std::min(64LL, kMaxPartialFloats / df_floats)));
   p.per_f = (int)ceil_div(chunks, p.sf);
   p.scratch_f = p.sf > 1 ? p.sf * df_floats : 0;
@@ -1142,6 +1255,8 @@ BwdPlan bwd_plan(int G, int N, int m, int L, int n_groups) {
     case 16: plan_tc<16>(p, G, N, m, L, n_groups); break;
     case 25: plan_tc<25>(p, G, N, m, L, n_groups); break;
     case 32: plan_tc<32>(p, G, N, m, L, n_groups); break;
+    case 48: plan_tc<48>(p, G, N, m, L, n_groups); break;
+    case 64: plan_tc<64>(p, G, N, m, L, n_groups); break;
     default: {
       const int s = wide_splits(G, N, m, L, n_groups);
       if (s < 1) {
@@ -1172,18 +1287,22 @@ int launch_bwd_tc(const BwdPlan& p, const float* x, const float* F, long long f_
   float* pf = p.sf > 1 ? scratch + p.scratch_x : dF;
   // 16-byte copies where every row of x and F starts on 16 bytes.
   const bool vec4 = m % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)F % 16 == 0;
-  const BwdKernel kx = vec4 ? quad_bwd_tc_kernel<false, NI, 4> : quad_bwd_tc_kernel<false, NI, 1>;
-  const BwdKernel kf = vec4 ? quad_bwd_tc_kernel<true, NI, 4> : quad_bwd_tc_kernel<true, NI, 1>;
-  dim3 gx((unsigned)ceil_div(N, BR), (unsigned)p.sx, (unsigned)G);
-  kx<<<gx, BTHREADS, Bwd<false, NI>::kSmem, s>>>(x, F, f_gstride, dy, px, dx_floats, N, m, L,
-                                                n_groups, 0, p.per_x);
+  constexpr int P = bwd_p(NI);
+  using X = Bwd<false, NI, P>;
+  using D = Bwd<true, NI, P>;
+  const BwdKernel kx =
+      vec4 ? quad_bwd_tc_kernel<false, NI, P, 4> : quad_bwd_tc_kernel<false, NI, P, 1>;
+  const BwdKernel kf =
+      vec4 ? quad_bwd_tc_kernel<true, NI, P, 4> : quad_bwd_tc_kernel<true, NI, P, 1>;
+  dim3 gx((unsigned)ceil_div(N, X::R), (unsigned)p.sx, (unsigned)G);
+  kx<<<gx, BTHREADS, X::kSmem, s>>>(x, F, f_gstride, dy, px, dx_floats, N, m, L, n_groups, 0,
+                                    p.per_x);
   int e = (int)cudaGetLastError();
   if (e == 0 && p.sx > 1) e = launch_sum(px, dx, dx_floats, p.sx, s);
   if (e != 0) return e;
-  dim3 gf((unsigned)ceil_div(m, BR), (unsigned)L, (unsigned)(p.sf * n_groups));
-  kf<<<gf, BTHREADS, Bwd<true, NI>::kSmem, s>>>(x, F, f_gstride, dy, pf, (long long)L * m * m, N,
-                                               m, L, n_groups, (long long)G * N / n_groups,
-                                               p.per_f);
+  dim3 gf((unsigned)ceil_div(m, D::R), (unsigned)L, (unsigned)(p.sf * n_groups));
+  kf<<<gf, BTHREADS, D::kSmem, s>>>(x, F, f_gstride, dy, pf, (long long)L * m * m, N, m, L,
+                                    n_groups, (long long)G * N / n_groups, p.per_f);
   e = (int)cudaGetLastError();
   if (e == 0 && p.sf > 1) e = launch_sum(pf, dF, df_floats, p.sf, s);
   return e;
@@ -1267,17 +1386,18 @@ int sat_quad_fwd_f32(const void* x, const void* F, long long f_gstride, void* ou
                                   stream);
 }
 
-// The backward's design at these sizes, into out[8]: column tiles of the
+// The backward's design at these sizes, into out[11]: column tiles of the
 // tensor-core kernels (0: the wide variant), rows of a block, chunk depth,
 // blocks an SM of the dx and the dF kernel, splits of dx's chunks and of
-// dF's rows (each > 1 adds a fixed-order sum), and the floats of scratch
-// the backward needs. Returns 0, or the CUDA error of the queries.
+// dF's rows (each > 1 adds a fixed-order sum), the floats of scratch the
+// backward needs, the warps that share a row group, and the chunk buffers
+// of the dx and the dF kernel. Returns 0, or the CUDA error of the queries.
 int sat_quad_bwd_design(int G, int N, int m, int L, int n_groups, long long* out) {
   const BwdPlan p = bwd_plan(G, N, m, L, n_groups);
   if (p.err != 0) return p.err;
-  const long long v[8] = {p.ni, p.ni ? BR : TN, p.ni ? BC : TK, p.occ_dx, p.occ_df, p.sx, p.sf,
-                          p.scratch_x + p.scratch_f};
-  for (int k = 0; k < 8; ++k) out[k] = v[k];
+  const long long v[11] = {p.ni, p.ni ? p.rows : TN, p.ni ? BC : TK, p.occ_dx, p.occ_df, p.sx,
+                           p.sf, p.scratch_x + p.scratch_f, p.p, p.stages_dx, p.stages_df};
+  for (int k = 0; k < 11; ++k) out[k] = v[k];
   return 0;
 }
 
@@ -1307,6 +1427,8 @@ int sat_quad_bwd_f32(const void* x, const void* F, long long f_gstride, const vo
     case 16: return launch_bwd_tc<16>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
     case 25: return launch_bwd_tc<25>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
     case 32: return launch_bwd_tc<32>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
+    case 48: return launch_bwd_tc<48>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
+    case 64: return launch_bwd_tc<64>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
     default: return launch_bwd_wide(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
   }
 }

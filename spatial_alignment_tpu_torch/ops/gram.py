@@ -67,6 +67,10 @@ def _library() -> ctypes.CDLL:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.sat_gram_f32.argtypes = [vp, ll, vp, ll, vp, i, vp, i, vp, i, i, i, i, i, i, vp]
         lib.sat_gram_f32.restype = i
+        lib.sat_gram_row_splits.argtypes = [i, i, i]
+        lib.sat_gram_row_splits.restype = ll
+        lib.sat_empty_kernel.argtypes = [vp]
+        lib.sat_empty_kernel.restype = i
         _lib = lib
     return _lib
 
@@ -173,6 +177,15 @@ def gram_kernel(x1, x2, log_ls, log_var, kind: str = "rbf", out_dtype=torch.floa
         )
     launches += 1
     return out
+
+
+def design(G: int, M: int, N: int) -> dict:
+    """How the kernel cuts a (G, M, N) Gram on the current device
+    (``csrc/gram.cu``): the ranges its M rows are cut into."""
+    splits = _library().sat_gram_row_splits(G, M, N)
+    if splits < 0:
+        raise RuntimeError(f"gram design query failed with CUDA error {-splits}")
+    return {"row_splits": int(splits)}
 
 
 def _forward(x1, x2, log_ls, log_var, kind, force):

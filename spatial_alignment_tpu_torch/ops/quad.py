@@ -10,7 +10,9 @@ kernels (``csrc/quad.cu``, design and bound in its header) never write the
 tile by tile instead of saving it. Both run on the tensor cores in 3xTF32;
 the backward's dx and dF passes each make t and feed it, in registers, to
 their second product, their chunks split over blocks whose partial sums are
-added in a fixed order (:func:`bwd_design` reports the split). ``models.core`` sends a quad-diag here
+added in a fixed order (:func:`bwd_design` reports the split; above m = 256
+two warps share each group of rows, above m = 512 the first design runs).
+``models.core`` sends a quad-diag here
 only under ``quad_diag_impl="pallas"``; otherwise it runs
 :func:`quad_diag_plain` and autograd, as the JAX package's ``xla`` route.
 
@@ -163,7 +165,8 @@ def quad_bwd_kernel(x: torch.Tensor, F: torch.Tensor, dy: torch.Tensor):
 
 
 _DESIGN_KEYS = ("column_tiles", "block_rows", "chunk", "blocks_per_sm_dx", "blocks_per_sm_df",
-                "splits_dx", "splits_df", "scratch_floats")
+                "splits_dx", "splits_df", "scratch_floats", "row_group_warps", "stages_dx",
+                "stages_df")
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,9 +180,11 @@ def _design(device_index: int, G: int, N: int, m: int, L: int, n_groups: int) ->
 
 def bwd_design(G: int, N: int, m: int, L: int, n_groups: int) -> dict:
     """What the backward launches at these sizes on the current device
-    (``csrc/quad.cu``): its column tiles (0 above m = 256, the wide
+    (``csrc/quad.cu``): its column tiles (0 above m = 512, the wide
     variant), block rows, chunk depth, blocks per SM, splits of dx and of
-    dF (each above 1 adds a fixed-order sum) and the floats of scratch."""
+    dF (each above 1 adds a fixed-order sum), the floats of scratch, the
+    warps that share a group of 16 rows (2 above m = 256) and the chunk
+    buffers of the dx and the dF kernel."""
     values = _design(torch.cuda.current_device(), G, N, m, L, n_groups)
     return dict(zip(_DESIGN_KEYS, values))
 

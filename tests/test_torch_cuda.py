@@ -312,15 +312,25 @@ def test_cuda_ieee_redo_matches_the_fast_path(cuda_device, m, scale_exp):
 # multiples of 4 or 8: 4-byte copies, zero-filled edges), per group; the
 # backward's 128-row blocks and 32-deep chunks (N = 130, m = 37 and 200
 # end inside a chunk), each of its column-tile widths (m up to 64, 128,
-# 200 and 256), an odd channel count, and m = 300, past the tensor-core
-# backward's widest m (the wide variant).
+# 200 and 256), an odd channel count; above m = 256, where two warps share
+# each group of 16 rows of a 64-row block (m up to 384, and up to 512 with
+# one chunk buffer), m = 257, 300, 301, 320, the m = 384 fit's data and
+# warp layers, 385 and 512, both forms, ragged N (77, 130, 333: not a
+# multiple of 64), odd L; and m = 520, past the tensor-core backward's
+# widest m (the wide variant).
 _QUADS = [((5, 8100, 200), (10, 200, 200)), ((1, 4050, 200), (1, 2, 200, 200)),
           ((5, 200, 50), (30, 50, 50)), ((1, 100, 50), (1, 2, 50, 50)),
           ((3, 130, 37), (3, 1, 37, 37)), ((3, 4050, 37), (3, 1, 37, 37)),
           ((3, 130, 50), (3, 1, 50, 50)), ((3, 4050, 200), (3, 1, 200, 200)),
           ((3, 130, 200), (3, 1, 200, 200)), ((2, 333, 129), (3, 129, 129)),
           ((2, 333, 256), (3, 256, 256)), ((2, 77, 300), (3, 300, 300)),
-          ((3, 130, 301), (3, 3, 301, 301))]
+          ((3, 130, 301), (3, 3, 301, 301)),
+          ((2, 77, 257), (3, 257, 257)), ((3, 130, 257), (3, 1, 257, 257)),
+          ((2, 333, 320), (3, 320, 320)), ((3, 200, 320), (3, 2, 320, 320)),
+          ((5, 4050, 384), (10, 384, 384)), ((1, 2025, 384), (1, 2, 384, 384)),
+          ((2, 77, 384), (3, 384, 384)), ((3, 130, 385), (3, 3, 385, 385)),
+          ((2, 77, 385), (1, 385, 385)), ((2, 130, 512), (3, 512, 512)),
+          ((3, 77, 512), (3, 1, 512, 512)), ((2, 77, 520), (1, 520, 520))]
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -351,6 +361,41 @@ def test_cuda_quad_matches_plain(cuda_device, x_shape, f_shape, transposed):
     dx_p, dF_p = quad.quad_bwd_plain(x, F, dy)
     assert _rel(dx, dx_p) <= 1e-4
     assert _rel(dF, dF_p) <= 1e-4
+
+
+# (x shape, F shape, the design's expected values): m = 200 keeps one warp
+# a group of 16 rows (25 column tiles, 128-row blocks, three chunk
+# buffers); the m = 384 fit's data and warp layers take
+# 48 column tiles over two warps a row group, 64-row blocks, two buffers;
+# m = 512 one buffer; above, the wide variant (no column tiles).
+_QUAD_DESIGNS = [
+    ((5, 4050, 200), (10, 200, 200),
+     dict(column_tiles=25, block_rows=128, chunk=32, row_group_warps=1, stages_dx=3, stages_df=3)),
+    ((1, 2025, 200), (1, 2, 200, 200),
+     dict(column_tiles=25, block_rows=128, chunk=32, row_group_warps=1, stages_dx=3, stages_df=3)),
+    ((5, 4050, 384), (10, 384, 384),
+     dict(column_tiles=48, block_rows=64, chunk=32, row_group_warps=2, stages_dx=2, stages_df=2)),
+    ((1, 2025, 384), (1, 2, 384, 384),
+     dict(column_tiles=48, block_rows=64, chunk=32, row_group_warps=2, stages_dx=2, stages_df=2)),
+    ((2, 130, 512), (3, 512, 512),
+     dict(column_tiles=64, block_rows=64, chunk=32, row_group_warps=2, stages_dx=1, stages_df=1)),
+    ((2, 77, 520), (1, 520, 520), dict(column_tiles=0, block_rows=64, chunk=64)),
+]
+
+
+@pytest.mark.parametrize("x_shape,f_shape,want", _QUAD_DESIGNS)
+def test_cuda_quad_bwd_design(cuda_device, x_shape, f_shape, want):
+    """What the backward launches (``bwd_design``) by m: the tensor-core
+    design through m = 512, split over blocks so that the m = 384 warp
+    layer's 32 row blocks fill the card."""
+    G, N, m = x_shape
+    n_groups = G if len(f_shape) == 4 else 1
+    design = quad.bwd_design(G, N, m, f_shape[-3], n_groups)
+    assert {k: design[k] for k in want} == want
+    if want["column_tiles"]:
+        assert design["blocks_per_sm_dx"] >= 1 and design["blocks_per_sm_df"] >= 1
+    if x_shape == (1, 2025, 384):
+        assert design["splits_dx"] > 1 and design["splits_df"] > 1
 
 
 # The path's slabs, the edges of the shared-memory design's 32-column
@@ -507,6 +552,56 @@ def test_cuda_gram_matches_plain(cuda_device, x1_shape, x2_shape, per_view, kind
     # The expansion form, the unforced route (its cancellation: see above).
     tol = 1e-2 if kind == "matern12" else 1e-3
     assert _rel(K, gm.gram(*ins, kind, force=False)) <= tol
+
+
+def _gram_into(ins, kind, out, offset):
+    """Launch the kernel through its C entry into ``out`` from element
+    ``offset`` on (an output view the wrapper never makes: 16-byte stores
+    only where the output is aligned)."""
+    x1, x2, ls, var = ins
+    G = x2.shape[0] if x2.dim() == 3 else 1
+    M, D = x1.shape[-2:]
+    N = x2.shape[-2]
+    per = ls.numel() > 1
+    err = gm._library().sat_gram_f32(
+        x1.data_ptr(), M * D if x1.dim() == 3 else 0, x2.data_ptr(), N * D if x2.dim() == 3 else 0,
+        ls.data_ptr(), int(per), var.data_ptr(), int(per),
+        out.data_ptr() + offset * out.element_size(), int(out.dtype == torch.bfloat16),
+        G, M, N, D, gm._KINDS[kind], torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out[offset:offset + G * M * N].view(G, M, N)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["rbf", "matern12", "matern32"])
+@pytest.mark.parametrize("D", [1, 2, 3, 8])
+def test_cuda_gram_edges(cuda_device, D, kind, out_dtype):
+    """A row count that no cut of the rows divides evenly (67, prime, in
+    ranges of unequal sizes), 130 rows over 2 column tiles (one row a
+    block on 130 SMs or more), N not a multiple of 4 (1,001: the scalar
+    edge), an output view off its 16-byte (bfloat16: 8-byte) alignment,
+    D = 1 to 8; against the plain version (float32 rel 1e-5; bfloat16
+    within its spacing, 2^-8), two launches bit-equal."""
+    tol = 1e-5 if out_dtype == torch.float32 else 2.0**-8
+    assert 1 < gm.design(2, 67, 4096)["row_splits"] < 67
+    for x1_shape, x2_shape, per_view in (((67, D), (2, 4096, D), False),
+                                         ((1, 130, D), (1, 1001, D), True),
+                                         ((9, D), (3, 64, D), False)):
+        ins = _gram_inputs(x1_shape, x2_shape, per_view, cuda_device, seed=17)
+        K = gm.gram_kernel(*ins, kind, out_dtype=out_dtype)
+        K2 = gm.gram_kernel(*ins, kind, out_dtype=out_dtype)
+        Kp = gm.gram_plain(*ins, kind, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert K.dtype == out_dtype and K.shape == Kp.shape
+        assert torch.equal(K.view(torch.int16 if out_dtype == torch.bfloat16 else torch.int32),
+                           K2.view(torch.int16 if out_dtype == torch.bfloat16 else torch.int32))
+        assert _rel(K.float(), Kp.float()) <= tol
+        # The same values through an output that starts one element off.
+        buf = torch.full((K.numel() + 1,), float("nan"), dtype=out_dtype, device=cuda_device)
+        Ko = _gram_into(ins, kind, buf, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(Ko.reshape(K.shape).float(), K.float())
+        assert torch.isnan(buf[0].float())
 
 
 def test_cuda_gram_bfloat16_store_and_empty(cuda_device):

@@ -54,6 +54,9 @@ _FORMS = [
     ((3,), 130, 37, 1, True),
     ((2,), 40, 17, 3, False),
     ((2,), 33, 33, 2, True),
+    # Past m = 256, where the CUDA backward shares each row group between
+    # two warps.
+    ((1,), 16, 264, 2, False),
 ]
 
 

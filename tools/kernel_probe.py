@@ -1,27 +1,30 @@
 #!/usr/bin/env python3
-"""Hold the Cholesky, fused-factor, triangular-solve and quad-diag backward
-CUDA kernels of this checkout against an earlier checkout's on one GPU: the
-same results bit for bit (the quad backward: each against its plain
-version), and their times in turns.
+"""Hold the Cholesky, fused-factor, triangular-solve, quad-diag backward and
+cross-Gram CUDA kernels of this checkout against an earlier checkout's on
+one GPU: the same results bit for bit (the quad backward above m = 256:
+each against its plain version), and their times in turns.
 
-    python3 tools/kernel_probe.py --parent DIR [--out FILE]
+    python3 tools/kernel_probe.py --parent DIR [--kernels LIST] [--out FILE]
 
 DIR is an earlier checkout, e.g. unpacked with
 ``git archive <rev> spatial_alignment_tpu_torch/csrc | tar -x -C DIR``.
-Builds both checkouts' csrc/{cholesky,factor,trisolve,quad}.cu with the
-flags of ``spatial_alignment_tpu_torch/ops/_build.py`` and runs them on the
-same inputs at the shapes of the fits' paths. It raises when the two
-Cholesky, factor or solve results differ in any bit: these kernels'
-rounding is part of their contract (the header of csrc/common.cuh); only
-the fused factor's L^-1 above m = 240, which the panel design rounds as
-the shared-memory design does, is held to the plain version (rel 1e-4). The
-quad backward may round otherwise than an earlier design; each checkout's
-is held against ``quad_bwd_plain`` (rel 1e-4, the card tests' limit) and
-this checkout's two launches bit-equal. Then it times each in turns
-(parent, this, this, parent)
-by ``chip_smoke.median_ms`` (device time per call, the host's issue time
-left out), beside the PyTorch library call for the same function. One JSON
-object goes to stdout and to FILE (default
+Builds both checkouts' csrc/{cholesky,factor,trisolve,quad,gram}.cu (those
+LIST names: cholesky, factor, trisolve, quad_bwd, gram; default all) with
+the flags of ``spatial_alignment_tpu_torch/ops/_build.py`` and runs them on
+the same inputs at the shapes of the fits' paths. It raises when the two
+Cholesky, factor, solve or Gram results differ in any bit: these kernels'
+rounding is part of their contract (the headers of csrc/common.cuh and
+csrc/gram.cu); only the fused factor's L^-1 above m = 240, which the panel
+design rounds as the shared-memory design does, is held to the plain
+version (rel 1e-4). The quad backward is held bit for bit to the earlier
+checkout's at m <= 256; above, where an earlier design may round otherwise,
+each checkout's is held against ``quad_bwd_plain`` (rel 1e-4, the card
+tests' limit). This checkout's quad backward is launched twice and held
+bit-equal. Then it times each in turns (parent, this, this, parent) by
+``chip_smoke.median_ms`` (device time per call, the host's issue time left
+out), beside the PyTorch library call for the same function (the Gram: the
+expansion form, the quad backward: its plain version). The Gram rows also
+time an empty kernel, the floor of a launch. One JSON object goes to stdout and to FILE (default
 spatial_alignment_tpu_torch/_build/kernel_probe.json). Needs a CUDA device
 and nvcc; exits 2 without a device.
 """
@@ -38,7 +41,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SOURCES = ("cholesky", "factor", "trisolve", "quad")
+SOURCES = ("cholesky", "factor", "trisolve", "quad", "gram")
+KERNELS = ("cholesky", "factor", "trisolve", "quad_bwd", "gram")
 TAGS = ("parent", "this")
 # Shapes on the fits' paths: the m = 200 and m = 384 final slabs and jitter
 # probes (two rungs stacked), the 100k fit's m = 100 pair, the m = 50 pair,
@@ -53,9 +57,19 @@ SOLVES = [((1, 200, 200), (1, 200, 2), False), ((1, 200, 200), (1, 200, 2), True
           ((1, 50, 50), (1, 50, 100), False), ((1, 50, 50), (1, 50, 100), True),
           ((2, 200, 200), None, False)]
 # Quad-diag backward (x shape, F shape): the m = 200 fit's data and warp
-# layers, the m = 50 fit's.
+# layers, the m = 50 fit's, the m = 384 fit's, and the m = 384 ones at
+# m = 512, the widest m of the tensor-core design (off the paths).
 QUAD_BWD = [((5, 4050, 200), (10, 200, 200)), ((1, 2025, 200), (1, 2, 200, 200)),
-            ((5, 200, 50), (30, 50, 50)), ((1, 100, 50), (1, 2, 50, 50))]
+            ((5, 200, 50), (30, 50, 50)), ((1, 100, 50), (1, 2, 50, 50)),
+            ((5, 4050, 384), (10, 384, 384)), ((1, 2025, 384), (1, 2, 384, 384)),
+            ((5, 4050, 512), (10, 512, 512)), ((1, 2025, 512), (1, 2, 512, 512))]
+# Cross-Gram (x1 shape, x2 shape, per-group parameters): the 100k fit's warp
+# layer, data layer, data layer in chunks of 2,048, and predict()'s warp
+# and data layers.
+GRAMS = [((1, 100, 2), (1, 4096, 2), True), ((100, 2), (5, 8192, 2), False),
+         ((100, 2), (5, 2048, 2), False), ((1, 100, 2), (1, 50000, 2), True),
+         ((100, 2), (1, 6250, 2), False)]
+GRAM_KINDS = ("rbf", "matern12", "matern32")
 
 
 def build(out_dir: Path, csrc: Path, name: str, tag: str):
@@ -81,6 +95,14 @@ def bind(path: Path) -> ctypes.CDLL:
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = i
+    if hasattr(lib, "sat_gram_f32"):
+        lib.sat_gram_f32.argtypes = [vp, ll, vp, ll, vp, i, vp, i, vp, i, i, i, i, i, i, vp]
+        lib.sat_gram_f32.restype = i
+    if hasattr(lib, "sat_gram_row_splits"):  # since the even row split
+        lib.sat_gram_row_splits.argtypes = [i, i, i]
+        lib.sat_gram_row_splits.restype = ll
+        lib.sat_empty_kernel.argtypes = [vp]
+        lib.sat_empty_kernel.restype = i
     if hasattr(lib, "sat_quad_bwd_f32"):  # the first design's entry takes the splits
         first = hasattr(lib, "sat_quad_bwd_splits")
         lib.sat_quad_bwd_f32.argtypes = [vp, vp, ll, vp, vp, vp, vp, i, i, i, i, i,
@@ -93,9 +115,14 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, required=True,
                         help="an earlier checkout to hold this one against")
+    parser.add_argument("--kernels", default=",".join(KERNELS),
+                        help=f"comma-separated subset of {','.join(KERNELS)}")
     parser.add_argument("--out", type=Path,
                         default=ROOT / "spatial_alignment_tpu_torch" / "_build" / "kernel_probe.json")
     args = parser.parse_args()
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(KERNELS):
+        parser.error(f"--kernels takes {','.join(KERNELS)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -107,7 +134,8 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     csrcs = {"parent": args.parent / "spatial_alignment_tpu_torch" / "csrc",
              "this": ROOT / "spatial_alignment_tpu_torch" / "csrc"}
-    jobs = {(t, name): build(out_dir, csrcs[t], name, t) for t in TAGS for name in SOURCES}
+    names = [n for n in SOURCES if (n if n != "quad" else "quad_bwd") in kernels]
+    jobs = {(t, name): build(out_dir, csrcs[t], name, t) for t in TAGS for name in names}
     libs = {}
     for key, (path, proc) in jobs.items():
         log, _ = proc.communicate()
@@ -151,7 +179,7 @@ def main() -> int:
         return keep[-1].data_ptr()
 
     record = {"device": nvidia_smi(), "cholesky": [], "factor": [], "trisolve": []}
-    for shape in CHOL_SHAPES:
+    for shape in CHOL_SHAPES if "cholesky" in kernels else ():
         B, m = shape[0], shape[-1]
         A = spd(gen, B, m, dev)
         outs = {t: [torch.empty_like(A)] for t in TAGS}
@@ -170,7 +198,7 @@ def main() -> int:
         fns["library"] = lambda: torch.linalg.cholesky(A)
         record["cholesky"].append({"shape": list(shape), "ms": in_turns(fns)})
 
-    for shape in FACTOR_SHAPES:
+    for shape in FACTOR_SHAPES if "factor" in kernels else ():
         B, m = shape[0], shape[-1]
         A = spd(gen, B, m, dev)
         outs = {t: [torch.empty_like(A), torch.empty_like(A)] for t in TAGS}
@@ -208,7 +236,7 @@ def main() -> int:
         fns["library"] = chain
         record["factor"].append({"shape": list(shape), "ms": in_turns(fns)})
 
-    for l_shape, b_shape, trans in SOLVES:
+    for l_shape, b_shape, trans in SOLVES if "trisolve" in kernels else ():
         m = l_shape[-1]
         nf = 1 if len(l_shape) == 2 else l_shape[0]
         L = torch.linalg.cholesky(spd(gen, nf, m, dev)).reshape(l_shape).contiguous()
@@ -235,8 +263,13 @@ def main() -> int:
         fns["library"] = lambda: torch.linalg.solve_triangular(op, rhs, upper=trans)
         record["trisolve"].append({"L": list(l_shape), "B": None if ident else list(b_shape),
                                    "trans": trans, "ms": in_turns(fns)})
-    record["quad_bwd"] = probe_quad_bwd(libs, gen, stream, launched, in_turns)
-    record["bit_equal_to_parent"] = ["cholesky", "factor", "trisolve"]
+    if "quad_bwd" in kernels:
+        record["quad_bwd"] = probe_quad_bwd(libs, gen, stream, launched, held, in_turns)
+    if "gram" in kernels:
+        record["gram"] = probe_gram(libs, gen, stream, launched, held, in_turns)
+    record["bit_equal_to_parent"] = [k for k in ("cholesky", "factor", "trisolve", "gram")
+                                     if k in kernels] + (["quad_bwd at m <= 256"]
+                                                         if "quad_bwd" in kernels else [])
     text = json.dumps(record)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(text + "\n")
@@ -244,10 +277,11 @@ def main() -> int:
     return 0
 
 
-def probe_quad_bwd(libs, gen, stream, launched, in_turns):
+def probe_quad_bwd(libs, gen, stream, launched, held, in_turns):
     """Each checkout's quad backward against the plain version at the fits'
-    shapes, this checkout's launched twice and held bit-equal, then both
-    timed in turns (no library call computes it)."""
+    shapes, this checkout's launched twice and held bit-equal, and held bit
+    for bit to the parent's at m <= 256; then both timed in turns (no
+    library call computes it)."""
     import torch
     from chip_smoke import bit_equal, rel_err
     from spatial_alignment_tpu_torch.ops import quad
@@ -266,9 +300,9 @@ def probe_quad_bwd(libs, gen, stream, launched, in_turns):
             lib = libs[(t, "quad")]
             dx, dF = torch.empty_like(x), torch.empty_like(F)
             if hasattr(lib, "sat_quad_bwd_design"):
-                d = (ctypes.c_longlong * 8)()
+                d = (ctypes.c_longlong * 16)()  # 8 values before the paired-warp design, 11 since
                 launched(lib.sat_quad_bwd_design(G, N, m, L, n_groups, d), f"design {t}")
-                design = list(d)
+                design = list(d)[:11]
                 scratch = torch.empty((design[7],), device="cuda")
 
                 def run():
@@ -289,11 +323,12 @@ def probe_quad_bwd(libs, gen, stream, launched, in_turns):
             return run, dx, dF, design
 
         dxp, dFp = quad.quad_bwd_plain(x, F, dy)
-        fns, rels, design = {}, {}, None
+        fns, rels, design, outs = {}, {}, None, {}
         for t in TAGS:
             run, dx, dF, d = runner(t)
             run()
             torch.cuda.synchronize()
+            outs[t] = (dx, dF)
             rels[t] = max(rel_err(dx, dxp), rel_err(dF, dFp))
             if rels[t] > 1e-4:
                 raise AssertionError(f"quad_bwd {t} {x_shape}: rel {rels[t]} to plain")
@@ -305,10 +340,61 @@ def probe_quad_bwd(libs, gen, stream, launched, in_turns):
                 if not (bit_equal(first[0], dx) and bit_equal(first[1], dF)):
                     raise AssertionError(f"quad_bwd {x_shape}: two launches differ")
             fns[t] = run
+        if m <= 256:
+            held(outs, f"quad_bwd {x_shape}")
         fns["library"] = lambda: quad.quad_bwd_plain(x, F, dy)
         rows.append({"x": list(x_shape), "F": list(f_shape), "rel_vs_plain": rels,
                      "design_this": design, "bit_equal_twice": True,
+                     "bit_equal_to_parent": m <= 256,
                      "ms": in_turns(fns), "library_is": "quad_bwd_plain (no library call)"})
+    return rows
+
+
+def probe_gram(libs, gen, stream, launched, held, in_turns):
+    """Both checkouts' Gram kernels at the 100k path's shapes, every kind,
+    float32 (and at one shape bfloat16) held bit for bit, timed in turns
+    beside the expansion form; an empty kernel, the floor of a launch."""
+    import torch
+    from chip_smoke import median_ms
+    from spatial_alignment_tpu_torch.ops import gram as gm
+
+    this = libs[("this", "gram")]
+    rows = []
+    empty_ms = median_ms(lambda: launched(this.sat_empty_kernel(stream()), "empty kernel"))
+    for x1_shape, x2_shape, per_group in GRAMS:
+        x1 = 10 * torch.rand(x1_shape, generator=gen, device="cuda")
+        x2 = 10 * torch.rand(x2_shape, generator=gen, device="cuda")
+        n_par = x2_shape[0] if per_group else 1
+        ls = 1.5 * torch.rand((n_par,), generator=gen, device="cuda") - 0.5
+        var = torch.rand((n_par,), generator=gen, device="cuda") - 0.5
+        G = x2_shape[0] if len(x2_shape) == 3 else 1
+        M, N, D = x1_shape[-2], x2_shape[-2], x2_shape[-1]
+        x1_stride = M * D if len(x1_shape) == 3 else 0
+        x2_stride = N * D if len(x2_shape) == 3 else 0
+        auto = this.sat_gram_row_splits(G, M, N)
+        for kind in GRAM_KINDS:
+            for bf16 in ((False, True) if x2_shape == (5, 2048, 2) else (False,)):
+                dtype = torch.bfloat16 if bf16 else torch.float32
+                outs = {t: [torch.empty((G, M, N), dtype=dtype, device="cuda")] for t in TAGS}
+
+                def run(t):
+                    lib = libs[(t, "gram")]
+                    return lambda: launched(lib.sat_gram_f32(
+                        x1.data_ptr(), x1_stride, x2.data_ptr(), x2_stride, ls.data_ptr(),
+                        int(per_group), var.data_ptr(), int(per_group), outs[t][0].data_ptr(),
+                        int(bf16), G, M, N, D, GRAM_KINDS.index(kind), stream()),
+                        f"gram {t}")
+
+                fns = {t: run(t) for t in TAGS}
+                for f in fns.values():
+                    f()
+                held(outs, f"gram {kind} {x2_shape} {dtype}")
+                fns["library"] = lambda: gm.gram(x1, x2, ls, var, kind, force=False)
+                rows.append({"x1": list(x1_shape), "x2": list(x2_shape), "kind": kind,
+                             "dtype": str(dtype), "bit_equal_to_parent": True,
+                             "row_splits": auto, "ms": in_turns(fns),
+                             "library_is": "expansion form (gram, force=False)",
+                             "empty_kernel_ms": empty_ms})
     return rows
 
 
