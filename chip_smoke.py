@@ -14,7 +14,12 @@ backward), each at m = 200 and m = 50 and, past the 240 where the Cholesky
 and the fused factor leave shared memory for their panel design, at
 m = 384; and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
 ``data_chunk_size``) and its ``predict()``, on the default route and under
-``set_gram_force(True)`` (cross-Gram kernel). Phases, one JSON line each:
+``set_gram_force(True)`` (cross-Gram kernel). Every ``fit()`` runs its
+step as replays of a captured CUDA graph, so every kernel of every path
+launches inside the graph. The launch counts of a captured fit are the
+captured step's counts times its replays: each fit_* phase holds them
+against the kernels torch.profiler sees over 3 replays more. Phases, one
+JSON line each:
 
   device     nvidia-smi name and power limit, torch / CUDA versions, TF32 flags
   build      nvcc wall time, ptxas registers, shared memory and spills a kernel
@@ -69,13 +74,26 @@ m = 384; and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
              fit_mb100k's
   fit_mb100k_gram_chunked  the same with data_chunk_size 2048, 100 steps: 5
              Gram launches a step; first loss and peak memory beside the above
+  fit_graph_vs_eager  one line a fit route (all nine above): 20 eager
+             make_train_step steps and 20 captured fit() steps from the same
+             parameters and generator state, losses and parameters bit for
+             bit equal; steps/s and peak memory of each, the graph's pool;
+             at fit_m200 and fit_mb100k also the non-capturable Adam's
+             difference from the captured run, and the same run's from
+             parameters one ulp up, the fit's amplification (recorded)
   predict_mb100k  predict() over all 100,000 spots of the forced model: 1 + 16
              Gram launches (16 data-layer chunks), finite (100000, .) outputs,
              aligned error below the data's
+  memory_after_fit  the bytes the nine cached graphs keep once fit() has
+             returned, and predict_mb100k's peak reserved memory with them
+             held and with them dropped; the seconds to capture one again
+  resume_on_card  twins of the fit_m200 model: fit(40) against fit(20), save,
+             VariationalGPSA.load, fit(20, resume_from=): losses and
+             parameters bit for bit equal
   profile    (with --profile DIR) device time per step by kernel over 10
-             steps of each m = 200 fit, of fit_m50_pallas, of both m = 384
-             fits and of the two unchunked 100k fits,
-             the device's idle share, and the chrome traces in DIR
+             steps of each fit route, captured and eager, the device's idle
+             share, the counters held against the profiler's kernel counts,
+             and the captured runs' chrome traces in DIR
   ab_fit_m200  (with --profile DIR) steps/s of the two m = 200 fits in
              turns, default and opt-in, A B B A twice
 
@@ -93,6 +111,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -254,19 +273,20 @@ def kernel_modules():
 
 
 def reset_counts():
-    ch, ts, qd, fc, gm = kernel_modules()
-    ch.launches = ts.launches = qd.fwd_launches = qd.bwd_launches = fc.launches = 0
-    gm.launches = 0
-    ch.plain_calls = ts.plain_calls = qd.plain_calls = fc.plain_calls = gm.plain_calls = 0
+    from spatial_alignment_tpu_torch import ops
+
+    ops.set_counters(dict.fromkeys(ops.read_counters(), 0))
 
 
 def read_counts():
     """({kernel: launches}, {module: plain calls}) since the last reset."""
-    ch, ts, qd, fc, gm = kernel_modules()
-    launches = {"cholesky": ch.launches, "trisolve": ts.launches, "quad_fwd": qd.fwd_launches,
-                "quad_bwd": qd.bwd_launches, "factor": fc.launches, "gram": gm.launches}
-    plain = {"cholesky": ch.plain_calls, "trisolve": ts.plain_calls, "quad": qd.plain_calls,
-             "factor": fc.plain_calls, "gram": gm.plain_calls}
+    from spatial_alignment_tpu_torch import ops
+
+    c = ops.read_counters()
+    launches = {"cholesky": c["cholesky.launches"], "trisolve": c["trisolve.launches"],
+                "quad_fwd": c["quad.fwd_launches"], "quad_bwd": c["quad.bwd_launches"],
+                "factor": c["factor.launches"], "gram": c["gram.launches"]}
+    plain = {k.split(".")[0]: v for k, v in c.items() if k.endswith(".plain_calls")}
     return launches, plain
 
 
@@ -1192,41 +1212,252 @@ def phase_fit(name, model, n_epochs, S, expect_mode, per_step, minibatch_size=No
               f"{name}: {launches[kernel]} {kernel} launches for {n_epochs} steps, "
               f"expected {k} per step")
     check(not any(plain.values()), f"{name}: plain versions called on the card: {plain}")
+    loop = model._train_loop_cache["loop"]
+    check(loop.graph is not None, f"{name}: fit() did not capture its step")
     peak = torch.cuda.max_memory_allocated()
-    emit(name, steps=n_epochs, seconds=dt, steps_per_s=n_epochs / dt,
+    # The counts above are the captured step's counts times its replays; over
+    # a few replays more, the kernels the profiler saw must equal them.
+    _, window, seen = profiled(lambda: model.fit(n_epochs=WINDOW_STEPS, lr=1e-2, S=S,
+                                                 minibatch_size=minibatch_size))
+    check(seen == window and all(window[k] == v * WINDOW_STEPS for k, v in per_step.items()),
+          f"{name}: over {WINDOW_STEPS} replays the counters {window} against the "
+          f"profiler's kernels {seen}")
+    emit(name, steps=n_epochs, seconds=dt, steps_per_s=n_epochs / dt, captured=True,
+         graph_pool_bytes=graph_pool_bytes(loop),
          launches=launches, launches_per_step={k: v / n_epochs for k, v in launches.items()},
          plain_calls=plain, solve_mode=model.spec.svgp_solve_mode, loss_first=float(losses[0]),
          loss_first50=first, loss_last50=last, peak_mem_bytes=peak,
          minibatch_size=minibatch_size, data_chunk_size=model.spec.data_chunk_size,
-         fit_calls=calls)
+         fit_calls=calls, profiler_window={"steps": WINDOW_STEPS, "launches": seen})
     return {"launches": launches, "losses": losses, "peak_mem_bytes": peak}
 
 
-def phase_profile(name, model, out_dir: Path, steps: int = 10, S: int = 5, top: int = 15,
-                  minibatch_size=None):
-    """Device time of ``steps`` training steps by kernel name, from
-    torch.profiler, beside the step time of ``2 * steps`` unprofiled steps
-    just before it on the same model (the host's pace drifts over a run, so
-    the two come from one state); the chrome trace goes to ``out_dir``."""
+# Replays of each fit_* phase's profiler window.
+WINDOW_STEPS = 3
+
+
+def profiled(run, trace=None):
+    """``run()`` under torch.profiler with every count set to 0 just before:
+    (device-side rows (name, self device us, count), the counters' launches
+    after, the launches of the port's kernels as the profiler saw them); the
+    chrome trace goes to the path ``trace`` when one is given."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fit = lambda n: model.fit(n_epochs=n, lr=1e-2, S=S, minibatch_size=minibatch_size)
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    launches, _ = read_counts()
+    if trace is not None:
+        prof.export_chrome_trace(str(trace))
+    # Device-side events only (kernels, copies, fills): a CPU op's row
+    # repeats the device time of the kernels it launched, and a device-side
+    # user annotation (the optimizer step's) spans kernels listed anyway.
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    # The port's kernels by their names in csrc/; a quad backward is a dx
+    # and a dF pass, or one tensor-core kernel launched twice.
+    count = lambda *names: sum(r[2] for r in rows if any(n in r[0] for n in names))
+    seen = {"cholesky": count("cholesky_smem_kernel", "cholesky_panel_kernel"),
+            "trisolve": count("trisolve_kernel"), "quad_fwd": count("quad_fwd_kernel"),
+            "quad_bwd": count("quad_bwd_tc_kernel", "quad_dx_kernel", "quad_df_kernel") / 2,
+            "factor": count("factor_smem_kernel", "factor_panel_kernel"),
+            "gram": count("gram_kernel")}
+    return rows, launches, seen
+
+
+def graph_pool_bytes(loop):
+    """Bytes the allocator holds for ``loop``'s captured graph (its private
+    pool's segments), or None where the snapshot names no pools."""
+    import torch
+
+    pool = tuple(loop.graph.pool())
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) == pool)
+
+
+def phase_graph_vs_eager(name, model, S=5, minibatch_size=None, steps=20,
+                         noncapturable=False):
+    """The eager make_train_step loop and the captured fit() for ``steps``
+    steps each, from the same parameters and generator state (the captured
+    one reuses the graph its fit_* phase made): loss traces bit for bit
+    equal, parameters too; steps/s and peak memory of each (max allocated
+    over the run; beside it the bytes the graph's private pool holds, and
+    the bytes the eager run reserved above what it found after
+    ``empty_cache``, the pool's unit).
+    ``noncapturable`` adds an eager run under the non-capturable Adam the
+    port's fit used before its step was captured (bias corrections on the
+    host, in float64): its losses' and parameters' largest relative
+    difference from the captured run's (the parameters' also after the
+    first step, against the eager run's) is recorded, not held. Beside it,
+    the witness of how far the fit amplifies a rounding difference: the
+    same non-capturable run from parameters one ulp up, its losses'
+    largest relative difference from the unperturbed run's."""
+    import numpy as np
+    import torch
+
+    leaves = model.parameters()
+    start = [p.detach().clone() for p in leaves]
+    gen_state = model._gen.get_state()
+    loop = model._train_loop_cache["loop"]
+    runs = {}
+    modes = ("eager", "captured") + (("noncapturable", "ulp") if noncapturable else ())
+    for mode in modes:
+        with torch.no_grad():
+            for p, v in zip(leaves, start):
+                p.copy_(torch.nextafter(v, torch.full_like(v, math.inf)) if mode == "ulp" else v)
+        model._gen.set_state(gen_state)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # so the run's reserved bytes show its own segments
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if mode == "captured":
+            losses = model.fit(n_epochs=steps, lr=1e-2, S=S, minibatch_size=minibatch_size)
+        else:
+            factory = None if mode == "eager" else (lambda p: torch.optim.Adam(p, lr=1e-2))
+            step, _ = model.make_train_step(lr=1e-2, S=S, optimizer=factory,
+                                            minibatch_size=minibatch_size)
+            first = step()
+            params1 = [p.detach().clone() for p in leaves]
+            losses = torch.stack([first] + [step() for _ in range(steps - 1)]).cpu().numpy()
+            del step
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs[mode] = {"losses": np.asarray(losses, np.float64),
+                      "params1": params1 if mode != "captured" else None,
+                      "params": [p.detach().clone() for p in leaves],
+                      "steps_per_s": steps / dt,
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "reserved_bytes": torch.cuda.max_memory_reserved() - reserved}
+    check(model._train_loop_cache["loop"] is loop, f"{name}: the captured run made a new graph")
+    check(np.array_equal(runs["eager"]["losses"], runs["captured"]["losses"]),
+          f"{name}: captured losses {runs['captured']['losses'][:3]} differ from eager "
+          f"{runs['eager']['losses'][:3]}")
+    check(all(torch.equal(a, b)
+              for a, b in zip(runs["eager"]["params"], runs["captured"]["params"])),
+          f"{name}: captured parameters differ from eager")
+    extra = {}
+    if noncapturable:
+        a, b = runs["noncapturable"], runs["captured"]
+        check(bool(np.isfinite(a["losses"]).all()), f"{name}: non-finite non-capturable loss")
+        loss_rel = np.abs(a["losses"] - b["losses"]) / np.abs(b["losses"])
+        extra = {"noncapturable_loss_max_rel": float(loss_rel.max()),
+                 "noncapturable_loss_rel_by_step": loss_rel.tolist(),
+                 "noncapturable_param_max_rel_step1": max(
+                     rel_err(x, y) for x, y in zip(a["params1"], runs["eager"]["params1"])),
+                 "noncapturable_param_max_rel": max(rel_err(x, y) for x, y in
+                                                    zip(a["params"], b["params"])),
+                 "ulp_loss_max_rel": float(np.max(np.abs(runs["ulp"]["losses"] - a["losses"])
+                                                  / np.abs(a["losses"])))}
+    emit("fit_graph_vs_eager", fit=name, steps=steps, losses_bit_equal=True,
+         params_bit_equal=True, loss_first=float(runs["eager"]["losses"][0]),
+         **{f"{mode}_steps_per_s": r["steps_per_s"] for mode, r in runs.items() if mode != "ulp"},
+         **{f"{mode}_peak_mem_bytes": r["peak_mem_bytes"] for mode, r in runs.items()
+            if mode != "ulp"},
+         eager_reserved_bytes=runs["eager"]["reserved_bytes"],
+         graph_pool_bytes=graph_pool_bytes(loop), **extra)
+
+
+def phase_memory_after_fit(models, predict, loop_args):
+    """What the train loops cached by fit() keep once it returns, and what
+    that costs ``predict`` (predict_mb100k): the bytes reserved and the peak
+    reserved and allocated during ``predict()`` with every model's graph
+    held, then with every graph dropped (as the eager fit left it: its
+    activations back in the caching allocator), each after empty_cache; and
+    the seconds to build one loop again (``loop_args``: (model, lr, S,
+    minibatch_size)), what dropping the graph after each fit would add to
+    every fit() call."""
+    import gc
+
+    import torch
+
+    pools = {name: graph_pool_bytes(m._train_loop_cache["loop"]) for name, m in models.items()}
+    out = {}
+    for state in ("held", "dropped"):
+        if state == "dropped":
+            for m in models.values():
+                m.__dict__.pop("_train_loop_cache", None)
+            gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        predict()
+        torch.cuda.synchronize()
+        out[state] = {"reserved_bytes": reserved,
+                      "predict_peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+                      "predict_peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    model, *args = loop_args
+    t0 = time.perf_counter()
+    loop = model.make_train_loop(*args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(loop.graph is not None, "memory_after_fit: the rebuilt loop did not capture")
+    del loop
+    emit("memory_after_fit", graph_pool_bytes=pools, graph_pools_total_bytes=sum(pools.values()),
+         device_total_bytes=torch.cuda.get_device_properties(0).total_memory,
+         loop_build_seconds=build_s, **out)
+
+
+def phase_resume(model, n: int = 20, S: int = 5):
+    """fit(2n) against fit(n), save, a fresh VariationalGPSA.load and
+    fit(n, resume_from=): losses and parameters bit for bit equal, the
+    Adam moments and step, the generator's offset and the epoch restored.
+    Both start from twins of ``model`` (its data and current parameters)."""
+    import numpy as np
+    import torch
+    from spatial_alignment_tpu_torch import VariationalGPSA
+
+    ref, first = twin(model), twin(model)
+    full = ref.fit(n_epochs=2 * n, lr=1e-2, S=S)
+    head = first.fit(n_epochs=n, lr=1e-2, S=S)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "resume_m200.npz")
+        first.save(path)
+        resumed = VariationalGPSA.load(path)
+        tail = resumed.fit(n_epochs=n, lr=1e-2, S=S, resume_from=path)
+    check(resumed._train_loop_cache["loop"].graph is not None, "resume: not captured")
+    check(np.array_equal(np.concatenate([head, tail]), full),
+          "resume: the resumed losses differ from the uninterrupted fit's")
+    same = [torch.equal(a, b) for a, b in zip(resumed.parameters(), ref.parameters())]
+    check(all(same) and len(same) == len(ref.parameters()),
+          "resume: the resumed parameters differ from the uninterrupted fit's")
+    check(resumed._epoch == 2 * n, f"resume: epoch {resumed._epoch}, expected {2 * n}")
+    emit("resume_on_card", fit="fit_m200", steps=2 * n, losses_bit_equal=True,
+         params_bit_equal=True, epoch=resumed._epoch, loss_last=float(full[-1]))
+
+
+def phase_profile(name, model, out_dir: Path, mode: str = "captured", steps: int = 10,
+                  S: int = 5, top: int = 15, minibatch_size=None):
+    """Device time of ``steps`` training steps by kernel name, from
+    torch.profiler, beside the step time of ``2 * steps`` unprofiled steps
+    just before it on the same model (the host's pace drifts over a run, so
+    the two come from one state); the chrome trace of the captured steps
+    goes to ``out_dir``. ``mode`` "captured" runs fit() (graph replays),
+    "eager" the make_train_step loop."""
+    import torch
+
+    if mode == "captured":
+        fit = lambda n: model.fit(n_epochs=n, lr=1e-2, S=S, minibatch_size=minibatch_size)
+    else:
+        step, _ = model.make_train_step(lr=1e-2, S=S, minibatch_size=minibatch_size)
+        fit = lambda n: [step() for _ in range(n)]
     fit(2)  # warm the allocator outside the window
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fit(2 * steps)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / (2 * steps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fit(steps)
-        torch.cuda.synchronize()
-    # Device-side events only (kernels, copies, fills): a CPU op's row
-    # repeats the device time of the kernels it launched, and a device-side
-    # user annotation (the optimizer step's) spans kernels listed anyway.
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    trace = None
+    if mode == "captured":
+        out_dir.mkdir(parents=True, exist_ok=True)
+        trace = out_dir / f"{name}_trace.json"
+    rows, launches, by_name = profiled(lambda: fit(steps), trace)
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     check(busy_us > 0, "profiler recorded no device time")
@@ -1234,9 +1465,12 @@ def phase_profile(name, model, out_dir: Path, steps: int = 10, S: int = 5, top: 
     # trisolve_kernel, quad_*_kernel, factor_*_kernel, gram_kernel).
     ours = {k: sum(r[1] for r in rows if k in r[0] and "_kernel" in r[0]) / busy_us
             for k in ("cholesky_", "trisolve_", "quad_", "factor_", "gram_")}
-    out_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / f"{name}_trace.json"))
-    emit("profile", fit=name, steps=steps, step_ms=step_s * 1e3,
+    # The counters against the kernels the profiler saw: under replay the
+    # loop adds the captured step's counts, so the two must agree.
+    check(by_name == launches,
+          f"{name} {mode}: counters {launches} against the profiler's kernels {by_name}")
+    emit("profile", fit=name, mode=mode, steps=steps, step_ms=step_s * 1e3,
+         launches_per_step={k: v / steps for k, v in launches.items()},
          device_busy_ms_per_step=busy_us / steps / 1e3,
          device_idle_share=1.0 - busy_us / steps / 1e6 / step_s,
          device_events_per_step=sum(r[2] for r in rows) / steps,
@@ -1267,10 +1501,8 @@ def phase_ab(models, steps: int = 100, rounds: int = 2, S: int = 5):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", type=Path,
-                        help="also profile 10 steps of each m = 200 fit, of the opt-in m = 50 "
-                             "fit, of both m = 384 fits and of the two unchunked 100k fits "
-                             "(device time by kernel), "
-                             "write the chrome "
+                        help="also profile 10 steps of every fit route, captured and eager "
+                             "(device time by kernel), write the captured runs' chrome "
                              "traces into DIR, and time the two m = 200 fits in turns "
                              "(A B B A)")
     args = parser.parse_args()
@@ -1431,6 +1663,15 @@ def main() -> int:
                  "cholesky_blocks_per_matrix": {"probe": ch.blocks_per_matrix(4, 384),
                                                 "final": ch.blocks_per_matrix(14, 384)}})
 
+    # Captured against eager: every fit route of the m = 200, m = 50 and
+    # m = 384 models, from the parameters its fit_* phase left.
+    phase_graph_vs_eager("fit_m200", model, noncapturable=True)
+    phase_graph_vs_eager("fit_m50", model50)
+    phase_graph_vs_eager("fit_m200_pallas", model_p)
+    phase_graph_vs_eager("fit_m50_pallas", model50_p)
+    phase_graph_vs_eager("fit_m384", model384)
+    phase_graph_vs_eager("fit_m384_pallas", model384_p)
+
     G_post, F_mean, F_var = model.predict({"expression": X200})
     fwd = model.forward({"expression": X200}, S=5)
     G_post_p, F_mean_p, F_var_p = model_p.predict({"expression": X200})
@@ -1468,6 +1709,11 @@ def main() -> int:
                          "chunked_2048": fit_mb_gc["peak_mem_bytes"],
                          "default_route": fit_mb["peak_mem_bytes"]})
 
+    phase_graph_vs_eager("fit_mb100k", model_mb, minibatch_size=MB_B, noncapturable=True)
+    with forced_gram():
+        phase_graph_vs_eager("fit_mb100k_gram", model_mb_g, minibatch_size=MB_B)
+        phase_graph_vs_eager("fit_mb100k_gram_chunked", model_mb_gc, minibatch_size=MB_B)
+
     with forced_gram():
         torch.cuda.synchronize()
         reset_counts()
@@ -1491,16 +1737,33 @@ def main() -> int:
          aligned_error_fit_default_route=aligned_error(G_def, vim),
          mse_F_mean=float(np.mean((F_mb - Ym) ** 2)))
 
-    if args.profile is not None:
-        phase_profile("fit_m200", model, args.profile)
-        phase_profile("fit_m200_pallas", model_p, args.profile)
-        phase_profile("fit_m50_pallas", model50_p, args.profile)
-        phase_profile("fit_m384", model384, args.profile)
-        phase_profile("fit_m384_pallas", model384_p, args.profile)
-        phase_ab({"A": model, "B": model_p})
-        phase_profile("fit_mb100k", model_mb, args.profile, minibatch_size=MB_B)
+    def predict_mb100k():
         with forced_gram():
-            phase_profile("fit_mb100k_gram", model_mb_g, args.profile, minibatch_size=MB_B)
+            return model_mb_g.predict({"expression": Xm})
+
+    phase_memory_after_fit(
+        {"fit_m200": model, "fit_m50": model50, "fit_m200_pallas": model_p,
+         "fit_m50_pallas": model50_p, "fit_m384": model384, "fit_m384_pallas": model384_p,
+         "fit_mb100k": model_mb, "fit_mb100k_gram": model_mb_g,
+         "fit_mb100k_gram_chunked": model_mb_gc},
+        predict_mb100k, (model_mb, 1e-2, 5, None, MB_B))
+    phase_resume(model)
+
+    if args.profile is not None:
+        for mode in ("captured", "eager"):
+            phase_profile("fit_m200", model, args.profile, mode)
+            phase_profile("fit_m50", model50, args.profile, mode)
+            phase_profile("fit_m200_pallas", model_p, args.profile, mode)
+            phase_profile("fit_m50_pallas", model50_p, args.profile, mode)
+            phase_profile("fit_m384", model384, args.profile, mode)
+            phase_profile("fit_m384_pallas", model384_p, args.profile, mode)
+            phase_profile("fit_mb100k", model_mb, args.profile, mode, minibatch_size=MB_B)
+            with forced_gram():
+                phase_profile("fit_mb100k_gram", model_mb_g, args.profile, mode,
+                              minibatch_size=MB_B)
+                phase_profile("fit_mb100k_gram_chunked", model_mb_gc, args.profile, mode,
+                              minibatch_size=MB_B)
+        phase_ab({"A": model, "B": model_p})
 
     def entry(kernel, launches, row, max_abs_err, shape):
         return {"name": kernel, "route": "cuda",

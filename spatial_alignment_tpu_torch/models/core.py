@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -46,6 +46,8 @@ from ..ops.linalg import (
 from .spec import ModelSpec, check_supported
 
 _LOG_2PI = math.log(2.0 * math.pi)
+# The warp temperature: a float, or a 0-d float32 tensor on the batch's device.
+Temperature = Union[float, torch.Tensor]
 # Floor for marginal variances before sqrt: d sqrt(u)/du is infinite at 0.
 _VAR_FLOOR = 1e-10
 
@@ -303,7 +305,7 @@ def warp_layer(
     hp: dict,
     X_all: torch.Tensor,  # (V, Ntot, D) padded observed coords
     S: int,
-    temperature: float = 1.0,
+    temperature: Temperature = 1.0,
     noise: Optional[torch.Tensor] = None,  # (S, V, Ntot, D)
     factors: Optional[Tuple] = None,
     generator: Optional[torch.Generator] = None,
@@ -369,7 +371,9 @@ def warp_layer(
         scale = sigma  # the reference passes the variance as the Normal scale
     else:
         scale = torch.sqrt(torch.clamp_min(sigma, _VAR_FLOOR))
-    scale = scale * temperature  # warp-noise tempering; 1.0 = exact ELBO
+    # Warp-noise tempering; 1.0 = exact ELBO. A 0-d tensor multiplies as the
+    # float of the same value does, so a captured step can read it per replay.
+    scale = scale * temperature
 
     if noise is None:
         noise = torch.randn((S,) + tuple(mu_tilde.shape), generator=generator, dtype=dt, device=dev)
@@ -541,7 +545,7 @@ def forward(
     hp: dict,
     batch,
     S: int = 1,
-    temperature: float = 1.0,
+    temperature: Temperature = 1.0,
     *,
     generator: Optional[torch.Generator] = None,
     warp_noise: Optional[torch.Tensor] = None,
@@ -643,7 +647,7 @@ def negative_elbo(
     consts: dict,
     batch,
     S: int,
-    temperature: float = 1.0,
+    temperature: Temperature = 1.0,
     *,
     generator: Optional[torch.Generator] = None,
     warp_noise: Optional[torch.Tensor] = None,
@@ -770,7 +774,7 @@ def negative_elbo_minibatch(
     consts: dict,
     batch,
     S: int,
-    temperature: float = 1.0,
+    temperature: Temperature = 1.0,
     *,
     generator: Optional[torch.Generator] = None,
     indices: Optional[Dict[str, torch.Tensor]] = None,

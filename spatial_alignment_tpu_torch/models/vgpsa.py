@@ -1,31 +1,40 @@
 """``VariationalGPSA`` in PyTorch: the user-facing model.
 
-Counterpart of ``spatial_alignment_tpu/models/vgpsa.py`` on its default
-path: construction (spec + seeded init), ``fit`` with Adam (full-batch or
-minibatch SVI), ``forward``, ``predict``, ``loss_fn`` and ``neg_elbo``. Each
-training step runs ``core.negative_elbo`` (or ``negative_elbo_minibatch``)
-forward and backward and one ``torch.optim.Adam`` step; per-step losses
-stay on the device and are copied to the host once per chunk.
+Counterpart of ``spatial_alignment_tpu/models/vgpsa.py``: construction
+(spec + seeded init), ``fit`` (full-batch or minibatch SVI, any optimizer
+factory, ``recipe="accurate"``, exact resume), ``make_train_step`` /
+``make_train_loop``, ``save`` / ``load`` / ``attach_data``, ``forward``,
+``predict``, ``loss_fn`` and ``neg_elbo``. On CUDA ``fit`` runs each step
+as one replay of a captured CUDA graph (:mod:`.train`); on the CPU the same
+steps run eagerly.
 
-Divergences from the JAX package: torch optimizers instead of optax
-(``recipe="accurate"`` is Adam under ``CosineAnnealingLR`` to lr/100, the
-same schedule as ``optax.cosine_decay_schedule(lr, n, alpha=1e-2)``), a
-``torch.Generator`` instead of ``jax.random`` (different sample streams for
-the same seed), and a numpy k-means instead of sklearn's. Options the port
-does not have yet raise ``NotImplementedError`` naming their ROADMAP.md item.
+Divergences from the JAX package: optimizer factories ``params ->
+torch.optim.Optimizer`` instead of optax transformations (the default is
+``torch.optim.Adam``, capturable on CUDA; ``recipe="accurate"`` is
+:class:`.train.CosineDecayAdam`, the same schedule as
+``optax.cosine_decay_schedule(lr, n, alpha=1e-2)``), a ``torch.Generator``
+instead of ``jax.random`` (different sample streams for the same seed), and
+a numpy k-means instead of sklearn's. Checkpoints share the JAX package's
+format and its ``params`` / ``consts`` / ``data`` sections
+(:mod:`..utils.checkpoint`). Options the port does not have yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ops.gram import gram_force
 from ..ops.kernels import kernel_name
+from ..utils.checkpoint import load_checkpoint_blob, nest, save_checkpoint, unflatten_into
 from . import core
+from .convert import tensors_from_numpy
 from .params import init_params, merge_hyperparams
 from .spec import (
     ModelSpec,
@@ -35,9 +44,11 @@ from .spec import (
     create_view_idx_dict,
     pack_batch,
     pack_coords,
+    spec_from_dict,
     unpack_points,
     view_mask,
 )
+from .train import CosineDecayAdam, TrainLoop
 
 _DEFAULT_LR = 1e-2
 
@@ -52,10 +63,53 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def _named_leaves(tree, prefix: str = "") -> list:
+    """[(slash-joined path, leaf)] in :func:`_leaves` order."""
+    if isinstance(tree, dict):
+        return [nl for k, v in tree.items() for nl in _named_leaves(v, f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+class _hybridmethod:
+    """Descriptor: the method gets the instance when called on one, the class
+    when called on the class (``VariationalGPSA.load(path)`` builds a model,
+    ``model.load(path)`` restores into one)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.__doc__ = fn.__doc__
+
+    def __get__(self, obj, objtype=None):
+        return partial(self.fn, obj if obj is not None else objtype)
+
+
+def _resolve_recipe(recipe, lr, n_epochs, optimizer, warp_temperature_schedule):
+    """Expand a named recipe into (optimizer factory, temperature schedule),
+    as the JAX package's ``_resolve_recipe``: "accurate" is
+    :class:`.train.CosineDecayAdam` over ``n_epochs`` with the temperature-0
+    objective; an optimizer or schedule given explicitly wins."""
+    if recipe == "accurate":
+        if optimizer is None:
+            optimizer = CosineDecayAdam(lr, n_epochs)
+        if warp_temperature_schedule is None:
+            warp_temperature_schedule = lambda t: np.zeros_like(np.asarray(t, np.float32))
+    return optimizer, warp_temperature_schedule
+
+
+def _same_factory(a, b) -> bool:
+    """Whether a train loop built by optimizer factory ``a`` serves ``b``: the
+    same object, or two CosineDecayAdam at one lr (the graph reads the
+    learning rate from a tensor each step, so their horizons do not enter
+    it; each fit takes its schedule from its own factory)."""
+    if type(a) is CosineDecayAdam and type(b) is CosineDecayAdam:
+        return a.lr == b.lr
+    return a is b
 
 
 class VariationalGPSA:
@@ -156,7 +210,11 @@ class VariationalGPSA:
         self._batch = batch
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
+        self._seed = int(seed)
         self._last_aux = None
+        # The last fit's epoch, optimizer state and generator state, for save().
+        self._epoch = 0
+        self._opt_state = self._rng_state = None
         vi, Ns, Ps, n_total = create_view_idx_dict(self.spec)
         self.view_idx, self.Ns, self.Ps, self.n_total = vi, Ns, Ps, n_total
 
@@ -322,10 +380,11 @@ class VariationalGPSA:
     # ------------------------------------------------------------------
     # Training
     # ------------------------------------------------------------------
-    def _draw_noise(self, S: int):
-        """(warp_noise, data_noise) for one step; None draws inside the step
-        from the model's generator."""
-        return None, None
+    # None draws each step's noise inside the step from the model's generator;
+    # the tests set a function S -> (warp_noise, data_noise) here to inject
+    # the JAX package's draws into CPU steps (a captured step calls it once,
+    # at capture).
+    _draw_noise = None
 
     def _loss_fn(self, minibatch_size: Optional[int]):
         """(params, S, temp, warp_noise, data_noise) -> scalar loss over the
@@ -343,15 +402,92 @@ class VariationalGPSA:
             warp_noise=wn, data_noise=dn, weights=weights,
         )
 
-    def _step(self, loss_fn, opt, sched, S: int, temp: float) -> torch.Tensor:
-        warp_noise, data_noise = self._draw_noise(S)
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(self.params, S, temp, warp_noise, data_noise)
-        loss.backward()
-        opt.step()
-        if sched is not None:
-            sched.step()
-        return loss.detach()
+    def _step_loss(self, S: int, minibatch_size: Optional[int]):
+        """temp -> one step's loss on the current params, its noise drawn
+        from the generator or by ``_draw_noise``. It holds no reference to
+        the model: a cached loop must not make a cycle with it, or its graph
+        could be freed by the garbage collector while another is captured."""
+        loss_fn, params, draw = self._loss_fn(minibatch_size), self.params, self._draw_noise
+        return lambda temp: loss_fn(params, S, temp, *(draw(S) if draw else (None, None)))
+
+    def _optimizer(self, optimizer, lr: float) -> torch.optim.Optimizer:
+        """``optimizer(params)``, or by default Adam at ``lr`` (capturable on
+        CUDA, where fit() captures its step)."""
+        if optimizer is None:
+            return torch.optim.Adam(self.parameters(), lr=lr,
+                                    capturable=self.device.type == "cuda")
+        return optimizer(self.parameters())
+
+    def make_train_step(
+        self,
+        lr: float = _DEFAULT_LR,
+        S: int = 5,
+        optimizer=None,
+        minibatch_size: Optional[int] = None,
+    ):
+        """(step, optimizer): ``step(temperature=1.0)`` runs one eager
+        training step on the model's parameters (loss, backward, optimizer
+        step) and returns the loss as a 0-d device tensor. ``optimizer`` is a
+        factory ``params -> torch.optim.Optimizer`` (default Adam at ``lr``,
+        capturable on CUDA). A schedule the factory carries
+        (``lr_schedule``) is not applied here. From the same parameters,
+        optimizer state and generator state, these steps give the losses of
+        ``fit``'s captured steps bit for bit: this is their eager reference."""
+        opt = self._optimizer(optimizer, lr)
+        loss_fn = self._step_loss(S, minibatch_size)
+
+        def step(temperature=1.0) -> torch.Tensor:
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(temperature)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return step, opt
+
+    def make_train_loop(
+        self,
+        lr: float = _DEFAULT_LR,
+        S: int = 5,
+        optimizer=None,
+        minibatch_size: Optional[int] = None,
+    ) -> TrainLoop:
+        """The :class:`.train.TrainLoop` of this model: on CUDA its step
+        (forward, backward, optimizer step) captured once as a CUDA graph and
+        replayed once a step, on the CPU run eagerly. ``loop.run(temps,
+        lrs)`` runs ``len(temps)`` steps and returns their losses;
+        ``loop.optimizer`` is the optimizer, its state fresh."""
+        return TrainLoop(
+            _named_leaves(self.params),
+            self._step_loss(S, minibatch_size),
+            self._optimizer(optimizer, lr),
+            self._gen,
+            scheduled=hasattr(optimizer, "lr_schedule"),
+        )
+
+    def _cached_train_loop(self, lr, S, optimizer, minibatch_size) -> TrainLoop:
+        """make_train_loop, reused across fit() calls while nothing it holds
+        changed: the same (lr, S, minibatch_size), Gram switch
+        (``set_gram_force``, read at capture), optimizer factory
+        (``_same_factory``), spec, generator and the same tensors of params,
+        consts and batch (a graph holds their addresses; average_last and
+        attach_data rebind them and miss)."""
+        key = (lr, S, minibatch_size, gram_force())
+        held = (self.spec, self._gen, self._draw_noise, *_leaves(self.params),
+                *_leaves(self.consts), *_leaves(self._batch))
+        cache = self.__dict__.get("_train_loop_cache")
+        if (
+            cache is not None
+            and cache["key"] == key
+            and _same_factory(cache["optimizer"], optimizer)
+            and len(cache["held"]) == len(held)
+            and all(a is b for a, b in zip(cache["held"], held))
+        ):
+            return cache["loop"]
+        self.__dict__.pop("_train_loop_cache", None)  # free the old graph first
+        loop = self.make_train_loop(lr, S, optimizer, minibatch_size)
+        self._train_loop_cache = {"key": key, "optimizer": optimizer, "held": held, "loop": loop}
+        return loop
 
     def fit(
         self,
@@ -369,38 +505,66 @@ class VariationalGPSA:
         recipe: Optional[str] = None,
         resume_from: Optional[str] = None,
     ) -> np.ndarray:
-        """Adam training loop; returns the per-step loss trace (float64).
+        """Training loop; returns the per-step loss trace (float64).
 
+        On CUDA each step is one replay of a captured CUDA graph
+        (:class:`.train.TrainLoop`); the losses stay on the device and are
+        copied to the host once per chunk. On the CPU the same steps run
+        eagerly. Each call starts a fresh optimizer state, as the JAX
+        package's does.
+
+        ``optimizer`` is a factory ``params -> torch.optim.Optimizer``
+        (default: Adam at ``lr``, capturable on CUDA; one that cannot be
+        captured raises on CUDA, and so does one whose fresh state is not
+        all zeros, see :func:`.train.check_zero_state`). A factory with ``lr_schedule(steps)`` has
+        its learning rate, a tensor, set from it before each step.
         ``callback(model, epoch, losses)`` fires every ``print_every``
         epochs; ``convergence_checker(iternum, losses)`` can stop early at
-        chunk ends; ``warp_temperature_schedule(epoch_array) -> temps``
-        anneals the warp noise; ``average_last=K`` replaces the final
-        parameters with the mean of chunk-end snapshots from the last K
-        epochs; ``recipe="accurate"`` is Adam under cosine decay to lr/100
-        with the temperature-0 objective. ``minibatch_size=B`` trains each
-        step on an unbiased B-points-per-view subsample (stochastic
-        variational inference); the returned trace holds the per-step
-        minibatch estimates.
+        chunk ends (see :mod:`..utils.convergence`);
+        ``warp_temperature_schedule(epoch_array) -> temps`` anneals the warp
+        noise; ``average_last=K`` replaces the final parameters with the mean
+        of chunk-end snapshots from the last K epochs; ``minibatch_size=B``
+        trains each step on an unbiased B-points-per-view subsample
+        (stochastic variational inference).
+        ``recipe="accurate"`` is Adam under cosine decay to lr/100
+        (:class:`.train.CosineDecayAdam`) with the temperature-0 objective,
+        unless ``optimizer`` / ``warp_temperature_schedule`` are given.
+        ``resume_from=path`` restores the parameters, the optimizer state,
+        the generator state and the epoch from a checkpoint ``save()`` wrote
+        after a fit, and trains ``n_epochs`` more: bit for bit the
+        uninterrupted fit (same optimizer factory; with ``recipe`` the
+        horizon is the total, checkpointed epoch + ``n_epochs``).
+        Checkpoints without optimizer state (``average_last``,
+        ``include_opt=False``) refuse.
         """
-        if resume_from is not None:
-            raise _not_ported("fit(resume_from=...)", "A2")
-        if optimizer is not None:
-            raise _not_ported("fit(optimizer=...)", "A2")
         if recipe not in (None, "plain", "accurate"):
             raise ValueError(f"unknown recipe {recipe!r}")
         if self._batch is None:
-            raise RuntimeError("this model has no training batch to fit on")
-        loss_fn = self._loss_fn(minibatch_size)
-
-        leaves = self.parameters()
-        opt = torch.optim.Adam(leaves, lr=lr)
-        sched = None
-        if recipe == "accurate":
-            sched = torch.optim.lr_scheduler.CosineAnnealingLR(
-                opt, T_max=n_epochs, eta_min=lr * 1e-2
+            raise RuntimeError(
+                "this model was loaded from a checkpoint saved with include_data=False: "
+                "it can predict but has no training batch; call attach_data(data_dict)"
             )
-            if warp_temperature_schedule is None:
-                warp_temperature_schedule = lambda t: np.zeros_like(np.asarray(t, np.float32))
+        epoch0, blob = 0, None
+        if resume_from is not None:
+            blob = load_checkpoint_blob(resume_from)
+            if not blob["torch_opt"] or blob["torch_rng"] is None:
+                raise ValueError(
+                    f"{resume_from} carries no optimizer state / generator state; it was "
+                    "saved before any fit(), after average_last or with include_opt=False "
+                    "and cannot resume exactly (start a fresh fit instead)"
+                )
+            self._assign(blob)
+            self._restore_training_state(blob, require_generator=True)
+            epoch0 = self._epoch
+        optimizer, warp_temperature_schedule = _resolve_recipe(
+            recipe, lr, epoch0 + n_epochs, optimizer, warp_temperature_schedule
+        )
+        lr_schedule = getattr(optimizer, "lr_schedule", None)
+        loop = self._cached_train_loop(lr, S, optimizer, minibatch_size)
+        if blob is not None:
+            loop.load_state(blob["torch_opt"])
+        else:
+            loop.reset_state()
 
         if chunk_size is None:
             chunk_size = print_every or min(100, max(1, n_epochs))
@@ -416,12 +580,13 @@ class VariationalGPSA:
                 n = min(n, print_every - t % print_every)
             if average_last and t < avg_start:
                 n = min(n, avg_start - t)
+            steps = np.arange(epoch0 + t, epoch0 + t + n)
             if warp_temperature_schedule is not None:
-                temps = np.asarray(warp_temperature_schedule(np.arange(t, t + n)), np.float32)
+                temps = np.asarray(warp_temperature_schedule(steps), np.float32)
             else:
                 temps = np.ones(n, np.float32)
-            chunk = torch.stack([self._step(loss_fn, opt, sched, S, float(tt)) for tt in temps])
-            losses[t : t + n] = chunk.cpu().numpy().astype(np.float64)
+            lrs = lr_schedule(steps) if lr_schedule is not None else None
+            losses[t : t + n] = loop.run(temps, lrs)
             if print_every and t % print_every == 0:
                 print(f"Iter: {t:<10} LL {-losses[t]:1.3e}", flush=True)
                 if callback is not None:
@@ -440,8 +605,137 @@ class VariationalGPSA:
         if n_snapshots:
             avg = _map(lambda s: s / n_snapshots, params_sum)
             self.params = _map(lambda a: a.requires_grad_(True), avg)
-        self._epoch = len(losses)
+            # The optimizer state and the generator belong to the trajectory's
+            # end, not to the average: save() writes no training state.
+            self._opt_state = self._rng_state = None
+        else:
+            self._opt_state = loop.state()
+            self._rng_state = self._gen.get_state()
+        self._epoch = epoch0 + len(losses)
         return losses
+
+    # ------------------------------------------------------------------
+    # Checkpoints
+    # ------------------------------------------------------------------
+    def save(
+        self,
+        path: str,
+        step: Optional[int] = None,
+        include_data: bool = True,
+        include_opt: bool = True,
+        extra: Optional[dict] = None,
+    ):
+        """Self-contained checkpoint to ``path`` (.npz + .json manifest): the
+        params, consts and spec, and unless left out the packed training
+        batch and the last fit's optimizer and generator state, from which
+        ``fit(resume_from=path)`` continues exactly. The JAX package's
+        ``VariationalGPSA.load`` reads it (without the training state)."""
+        with_opt = include_opt and self._opt_state is not None
+        save_checkpoint(
+            path,
+            self.params,
+            self.consts,
+            step=step if step is not None else self._epoch,
+            extra={"seed": self._seed, "torch_rng_device": self.device.type, **(extra or {})},
+            spec=self.spec,
+            batch=self._batch if include_data else None,
+            opt_state=self._opt_state if with_opt else None,
+            rng_state=self._rng_state if with_opt else None,
+        )
+
+    @_hybridmethod
+    def load(self_or_cls, path: str, device=None):
+        """Restore a checkpoint written by ``save`` (or by the JAX package's).
+
+        ``model.load(path)`` copies the params and consts into this model's
+        tensors (shapes must match) and takes its epoch and generator state;
+        ``VariationalGPSA.load(path, device=None)`` builds a model from a
+        self-contained checkpoint alone, on ``device`` (None = "cuda").
+        The optimizer state is read by ``fit(resume_from=path)``.
+        """
+        blob = load_checkpoint_blob(path)
+        if not isinstance(self_or_cls, type):
+            model = self_or_cls
+            model._assign(blob)
+            model._restore_training_state(blob)
+            return model
+        spec_dict = blob["manifest"].get("spec")
+        if spec_dict is None:
+            raise ValueError(
+                f"{path} is not self-contained (no spec in its manifest); construct "
+                "the model and call model.load(path) instead"
+            )
+        spec = spec_from_dict(spec_dict)
+        check_supported(spec)
+        dev = resolve_device(device)
+        params = tensors_from_numpy(nest(blob["params"]), dev)
+        params.setdefault("W", {})  # an empty subtree (no LMC) has no npz entries
+        consts = tensors_from_numpy(nest(blob["consts"]), dev)
+        batch = tensors_from_numpy(nest(blob["data"]), dev) if blob["data"] else None
+        model = self_or_cls.__new__(self_or_cls)
+        model.device = dev
+        model.spec = spec
+        model._set_state(params, consts, batch, int(blob["manifest"].get("seed", 0)))
+        model._restore_training_state(blob)
+        fixed = [i for i, b in enumerate(spec.fixed_view_mask) if b]
+        model.fixed_view_idx = None if not fixed else (fixed[0] if len(fixed) == 1 else fixed)
+        model.n_latent_gps = {m.name: (m.n_latent if m.use_lmc else None)
+                              for m in spec.modalities}
+        return model
+
+    def _assign(self, blob: dict):
+        """Copy a checkpoint's params and consts into the model's tensors
+        (in place: a captured step keeps reading them)."""
+        params = unflatten_into(self.params, blob["params"])
+        consts = unflatten_into(self.consts, blob["consts"])
+        with torch.no_grad():
+            for dst, src in zip(_leaves(self.params) + _leaves(self.consts),
+                                _leaves(params) + _leaves(consts)):
+                dst.copy_(src)
+
+    def _restore_training_state(self, blob: dict, require_generator: bool = False):
+        """Take the checkpoint's epoch and, when it was saved on this kind of
+        device, its generator state (a CUDA and a CPU generator's states
+        differ; ``require_generator`` raises on that)."""
+        self._epoch = int(blob["manifest"].get("step") or 0)
+        if blob["torch_rng"] is None:
+            return
+        saved_on = blob["manifest"].get("torch_rng_device")
+        if saved_on != self.device.type:
+            if require_generator:
+                raise ValueError(
+                    f"the checkpoint's generator state is from a {saved_on} generator; "
+                    f"this model's runs on {self.device.type}"
+                )
+            return
+        self._rng_state = torch.from_numpy(np.array(blob["torch_rng"], np.uint8))
+        self._gen.set_state(self._rng_state)
+
+    def attach_data(self, data_dict: Dict[str, dict]):
+        """Attach the training data to a model whose checkpoint was saved
+        with ``include_data=False``, so it can fit again. ``data_dict`` must
+        have the layout the spec was built from (modalities, per-view counts,
+        spatial and output dimensions); it is checked before packing."""
+        for mod in self.spec.modalities:
+            if mod.name not in data_dict:
+                raise ValueError(f"data_dict is missing modality {mod.name!r}")
+            d = data_dict[mod.name]
+            X, Y = _as_numpy(d["spatial_coords"]), _as_numpy(d["outputs"])
+            nsl = [int(n) for n in d["n_samples_list"]]
+            if nsl != list(mod.n_samples):
+                raise ValueError(
+                    f"{mod.name}: n_samples_list {nsl} does not match the spec's "
+                    f"per-view counts {list(mod.n_samples)}"
+                )
+            if X.shape != (sum(nsl), self.spec.n_spatial_dims):
+                raise ValueError(f"{mod.name}: spatial_coords shape {X.shape} != "
+                                 f"({sum(nsl)}, {self.spec.n_spatial_dims})")
+            if Y.shape != (sum(nsl), mod.n_outputs):
+                raise ValueError(f"{mod.name}: outputs shape {Y.shape} != "
+                                 f"({sum(nsl)}, {mod.n_outputs})")
+        self._batch = pack_batch(self.spec, data_dict, self.device)
+        self.__dict__.pop("_train_loop_cache", None)
+        return self
 
     def fit_multistart(self, *args, **kwargs):
         """Not ported yet; raises."""

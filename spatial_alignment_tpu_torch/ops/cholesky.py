@@ -16,6 +16,8 @@ jitter probes in :mod:`.linalg` depend on that NaN.
 
 Counters: ``launches`` counts kernel launches, ``plain_calls`` calls of the
 plain version. Set either to 0 before a run and read it after.
+A captured training step counts once, at its capture; the training
+loop (``models/train.py``) adds that step's counts once per replay.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ __all__ = [
     "uses_shared_memory",
 ]
 
+COUNTERS = ("launches", "plain_calls")
 launches = 0
 plain_calls = 0
 

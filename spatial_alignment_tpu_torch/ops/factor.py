@@ -24,6 +24,8 @@ because JAX leaves them to XLA.
 
 Counters: ``launches`` counts kernel launches; ``plain_calls`` counts calls
 that took the plain version because their tensor lay on the CPU.
+A captured training step counts once, at its capture; the training
+loop (``models/train.py``) adds that step's counts once per replay.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ __all__ = [
     "uses_shared_memory",
 ]
 
+COUNTERS = ("launches", "plain_calls")
 launches = 0
 plain_calls = 0
 

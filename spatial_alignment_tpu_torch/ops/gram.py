@@ -24,6 +24,8 @@ are summed back over every dim an input was broadcast along.
 
 Counters: ``launches`` counts kernel launches, ``plain_calls`` calls of
 :func:`gram_plain`. Set either to 0 before a run and read it after.
+A captured training step counts once, at its capture; the training
+loop (``models/train.py``) adds that step's counts once per replay.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from .kernels import get_kernel, pairwise_sqdist
 
 __all__ = ["gram", "gram_kernel", "gram_plain", "set_gram_force"]
 
+COUNTERS = ("launches", "plain_calls")
 launches = 0
 plain_calls = 0
 
@@ -58,6 +61,11 @@ def set_gram_force(force: Optional[bool]) -> None:
     (True), to the expansion form (False), or back to the default (None)."""
     global _FORCE
     _FORCE = force
+
+
+def gram_force() -> Optional[bool]:
+    """The switch :func:`set_gram_force` set (read when a step is captured)."""
+    return _FORCE
 
 
 def _library() -> ctypes.CDLL:

@@ -31,6 +31,8 @@ Counters: ``fwd_launches`` and ``bwd_launches`` count kernel launches of the
 forward and of the backward (one backward call launches its two to four
 kernels and counts once); ``plain_calls`` counts forward and backward calls that
 took the plain version because their tensors lay on the CPU.
+A captured training step counts once, at its capture; the training
+loop (``models/train.py``) adds that step's counts once per replay.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ __all__ = [
     "quad_bwd_plain",
 ]
 
+COUNTERS = ("fwd_launches", "bwd_launches", "plain_calls")
 fwd_launches = 0
 bwd_launches = 0
 plain_calls = 0

@@ -22,6 +22,8 @@ the product stays ``torch.matmul``, as JAX leaves it outside the kernel.
 Counters: ``launches`` counts kernel launches; ``plain_calls`` counts the
 solves that took the plain version because their tensors lay on the CPU.
 Set either to 0 before a run and read it after.
+A captured training step counts once, at its capture; the training
+loop (``models/train.py``) adds that step's counts once per replay.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ __all__ = [
     "uses_shared_memory",
 ]
 
+COUNTERS = ("launches", "plain_calls")
 launches = 0
 plain_calls = 0
 

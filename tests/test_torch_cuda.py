@@ -652,3 +652,165 @@ def test_cuda_forced_minibatch_fit_launches_the_gram_kernel(cuda_device, chunk):
     assert gm.launches == (1 + (48 // 16 if chunk else 1)) * 5
     assert ch.launches == 2 * 5
     assert gm.plain_calls == ch.plain_calls == 0
+
+
+# ---------------------------------------------------------------------------
+# The training loop as a CUDA graph (models/train.py)
+# ---------------------------------------------------------------------------
+
+
+def _grid_data(n=400, seed=14):
+    """Two views of ``n`` points, the second a jittered copy of the first."""
+    rng = np.random.default_rng(seed)
+    X1 = rng.uniform(0, 10, (n, 2)).astype(np.float32)
+    X = np.concatenate([X1, X1 + 0.1 * rng.standard_normal(X1.shape).astype(np.float32)])
+    Y = np.stack([np.sin(X[:, 0] * (j + 1) / 3.0) + np.cos(X[:, 1]) for j in range(3)], 1)
+    return {"expression": {"spatial_coords": X, "outputs": Y.astype(np.float32),
+                           "n_samples_list": [n, n]}}
+
+
+def _graph_model(device, m, opt_ins=True, **kw):
+    return VariationalGPSA(_grid_data(), m_X_per_view=m, m_G=m, n_latent_gps={"expression": 2},
+                           fixed_view_idx=0, device=device, **(OPT_INS if opt_ins else {}), **kw)
+
+
+def _eager_losses(model, n, **kw):
+    step, _ = model.make_train_step(**kw)
+    return np.array([float(step()) for _ in range(n)])
+
+
+def _leaves_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+
+
+@pytest.mark.parametrize("m,opt_ins,minibatch", [(50, True, None), (384, True, None),
+                                                 (200, False, None), (100, False, 64)],
+                         ids=["m50_opt_ins", "m384_opt_ins", "m200", "m100_minibatch"])
+def test_cuda_captured_fit_matches_eager_steps(cuda_device, m, opt_ins, minibatch):
+    """fit() replays one captured step; from the same parameters and
+    generator state the eager make_train_step loop gives the same losses and
+    parameters bit for bit (at m = 384 the Cholesky probe is a cluster
+    launch, as is the quad forward)."""
+    captured, eager = _graph_model(cuda_device, m, opt_ins), _graph_model(cuda_device, m, opt_ins)
+    losses = captured.fit(n_epochs=6, S=2, minibatch_size=minibatch)
+    assert captured._train_loop_cache["loop"].graph is not None
+    want = _eager_losses(eager, 6, S=2, minibatch_size=minibatch)
+    np.testing.assert_array_equal(losses, want)
+    assert _leaves_equal(captured, eager)
+
+
+def test_cuda_replays_draw_fresh_noise(cuda_device):
+    """Under SGD at lr 0 the parameters stay put, so the losses differ by
+    the noise alone: each replay draws anew, and the replays draw what
+    eager steps from the same generator state draw."""
+    frozen = lambda p: torch.optim.SGD(p, lr=0.0)
+    a, b = _graph_model(cuda_device, 50), _graph_model(cuda_device, 50)
+    losses = a.fit(n_epochs=3, S=2, optimizer=frozen)
+    assert len(set(losses.tolist())) == 3
+    np.testing.assert_array_equal(losses, _eager_losses(b, 3, S=2, optimizer=frozen))
+
+
+def test_cuda_counters_equal_the_profilers_kernel_counts(cuda_device):
+    """Over 5 replays the counters gain what the profiler saw launched: one
+    Cholesky kernel, one factor, eight solves, two quad forwards and two
+    backwards (a dx and a dF pass each) a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spatial_alignment_tpu_torch import ops
+
+    model = _graph_model(cuda_device, 50)
+    model.fit(n_epochs=1, S=2)  # capture outside the window
+    before = ops.read_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.fit(n_epochs=5, S=2)
+        torch.cuda.synchronize()
+    after = ops.read_counters()
+    gained = {k: after[k] - before[k] for k in after}
+    seen = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "_kernel" in e.key:
+            seen[e.key] = seen.get(e.key, 0) + e.count
+    count = lambda *names: sum(c for k, c in seen.items() if any(n in k for n in names))
+    chol = count("cholesky_smem_kernel", "cholesky_panel_kernel")
+    assert gained["cholesky.launches"] == chol == 5
+    assert gained["factor.launches"] == count("factor_smem_kernel", "factor_panel_kernel") == 5
+    assert gained["trisolve.launches"] == count("trisolve_kernel") == 40
+    assert gained["quad.fwd_launches"] == count("quad_fwd_kernel") == 10
+    passes = count("quad_bwd_tc_kernel", "quad_dx_kernel", "quad_df_kernel")
+    assert gained["quad.bwd_launches"] * 2 == passes == 20
+    assert not any(v for k, v in gained.items() if k.endswith("plain_calls"))
+
+
+@pytest.mark.parametrize("recipe", [None, "accurate"])
+def test_cuda_resume_is_bit_for_bit(cuda_device, tmp_path, recipe):
+    """fit(8) against fit(4), save, VariationalGPSA.load, fit(4,
+    resume_from=): the same losses and parameters, Adam moments and the
+    generator's offset restored (with the recipe over the total horizon)."""
+    from spatial_alignment_tpu_torch.models.vgpsa import _resolve_recipe
+
+    ref = _graph_model(cuda_device, 50)
+    full = ref.fit(n_epochs=8, S=2, recipe=recipe)
+    first = _graph_model(cuda_device, 50)
+    opt8, temps8 = _resolve_recipe(recipe, 1e-2, 8, None, None)
+    head = first.fit(n_epochs=4, S=2, optimizer=opt8, warp_temperature_schedule=temps8)
+    path = str(tmp_path / "mid.npz")
+    first.save(path)
+    resumed = VariationalGPSA.load(path)
+    tail = resumed.fit(n_epochs=4, S=2, recipe=recipe, resume_from=path)
+    np.testing.assert_array_equal(np.concatenate([head, tail]), full)
+    assert _leaves_equal(resumed, ref)
+    assert resumed._epoch == 8
+
+
+def test_cuda_non_capturable_optimizer_raises(cuda_device):
+    model = _graph_model(cuda_device, 50)
+    with pytest.raises(RuntimeError, match="Adam was built with capturable=False"):
+        model.fit(n_epochs=2, S=2, optimizer=lambda p: torch.optim.Adam(p, lr=1e-2))
+
+
+@pytest.mark.parametrize("mode", ["capturable_eager", "capturable_replayed", "noncapturable"])
+def test_cuda_adam_matches_float64_adam(cuda_device, mode):
+    """Five Adam steps on the same float32 gradients against optax's Adam
+    formula in float64: the capturable Adam fit() uses on the card (its lr
+    a float32 tensor, as the recipe's), stepped eagerly and replayed from
+    the train loop's captured step, and the non-capturable one, whose bias
+    corrections the host does. Each stays within float32 rounding: per step
+    2^-24 |p| for rounding the parameter and 2^-16 lr for the update (some
+    ulps of the quotient); without its bias corrections step 1's update
+    would be about 3.2 lr instead of lr."""
+    from spatial_alignment_tpu_torch.models.train import TrainLoop
+
+    n, steps, lr, b1, b2, eps = 4096, 5, 1e-2, 0.9, 0.999, 1e-8
+    rng = np.random.default_rng(21)
+    p0 = rng.standard_normal(n).astype(np.float32)
+    grads = rng.standard_normal((steps, n)).astype(np.float32)
+    p, m, v, want = p0.astype(np.float64), 0.0, 0.0, []
+    for t, g in enumerate(grads.astype(np.float64), 1):
+        m, v = b1 * m + (1 - b1) * g, b2 * v + (1 - b2) * g * g
+        p = p - lr * (m / (1 - b1**t)) / (np.sqrt(v / (1 - b2**t)) + eps)
+        want.append(p)
+
+    param = torch.tensor(p0, device=cuda_device, requires_grad=True)
+    g = torch.zeros(n, device=cuda_device)
+    if mode == "noncapturable":
+        opt = torch.optim.Adam([param], lr=lr)
+    else:
+        opt = torch.optim.Adam([param], capturable=True,
+                               lr=torch.tensor(lr, dtype=torch.float32, device=cuda_device))
+    loop = None
+    if mode == "capturable_replayed":
+        # The loss's gradient with respect to the parameter is g exactly.
+        loop = TrainLoop([("p", param)], lambda temp: (param * g).sum() * temp, opt,
+                         torch.Generator(device=cuda_device))
+        assert loop.graph is not None
+    for t in range(steps):
+        g.copy_(torch.from_numpy(grads[t]))
+        if loop is not None:
+            loop.run(np.ones(1, np.float32))
+        else:
+            param.grad = g.clone()
+            opt.step()
+        err = np.abs(param.detach().cpu().numpy().astype(np.float64) - want[t])
+        limit = (t + 1) * (2.0**-24 * np.abs(want[t]).max() + 2.0**-16 * lr)
+        assert err.max() <= limit, (mode, t, err.max(), limit)

@@ -108,18 +108,6 @@ def test_builders_default_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "kw",
-    [{"resume_from": "x.npz"}, {"optimizer": object()}],
-    ids=lambda kw: next(iter(kw)),
-)
-def test_fit_options_outside_the_slice_raise(kw):
-    dd = make_two_view_data(n_per_view=12, n_outputs=2)
-    model = VariationalGPSA(dd, m_X_per_view=4, m_G=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.fit(n_epochs=1, **kw)
-
-
-@pytest.mark.parametrize(
     "call",
     [lambda m: m.fit_multistart(n_restarts=2, n_epochs=1),
      lambda m: m.forward({"expression": np.zeros((24, 2), np.float32)}, G_test=object())],

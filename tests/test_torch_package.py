@@ -27,6 +27,10 @@ import spatial_alignment_tpu_torch
 import spatial_alignment_tpu_torch.data
 import spatial_alignment_tpu_torch.models.convert
 import spatial_alignment_tpu_torch.ops.cholesky
+import spatial_alignment_tpu_torch.models.train
+import spatial_alignment_tpu_torch.utils.checkpoint
+import spatial_alignment_tpu_torch.utils.convergence
+import spatial_alignment_tpu_torch.utils.profiling
 print(json.dumps(sorted(sys.modules)))
 """
 
