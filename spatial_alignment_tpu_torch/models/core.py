@@ -443,6 +443,10 @@ def _over_points(spec: ModelSpec, hp: dict, G: torch.Tensor, per_chunk, *extra):
     the backward instead of saved for all N points. Each chunk's Gram is
     made outside the recomputed region: its closed-form backward keeps it
     anyway, and recomputing it would launch the Gram kernel a second time.
+    Under the restart ``vmap`` of ``fit_multistart`` nothing is recomputed
+    (a recomputation would run outside the transform): the chunks bound the
+    forward's working set, and the backward keeps every chunk's
+    intermediates.
     """
     kern = lambda pts: gram(
         hp["Gtilde"], pts, hp["data_kernel_lengthscale"], hp["data_kernel_variance"],
@@ -456,7 +460,7 @@ def _over_points(spec: ModelSpec, hp: dict, G: torch.Tensor, per_chunk, *extra):
     for lo in range(0, N, chunk):
         Kuf = kern(G[:, lo : lo + chunk])
         args = (Kuf,) + tuple(e[:, lo : lo + chunk] for e in extra)
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() and not torch._C._functorch.is_batchedtensor(G):
             outs.append(checkpoint(per_chunk, *args, use_reentrant=False,
                                    preserve_rng_state=False))
         else:
@@ -791,6 +795,43 @@ def negative_elbo_minibatch(
         sub_spec, params, consts, sub, S, temperature, generator=generator,
         warp_noise=warp_noise, data_noise=data_noise,
     )
+
+
+def draw_restart_noise(
+    spec: ModelSpec,
+    R: int,
+    S: int,
+    generator: Optional[torch.Generator],
+    device: torch.device,
+    sub_spec: Optional[ModelSpec] = None,
+):
+    """One step's draws for ``R`` restarts at once, in the order one
+    restart's step draws them (the minibatch indices, then the warp noise,
+    then the data noise by modality), each with a leading restart axis:
+    (warp_noise (R, S, V, Ntot, D), data_noise {mod: (R, S, V*Np, L)} or
+    None under ``analytic_data_likelihood``, indices {mod: (R, V, B)} or
+    None). ``sub_spec`` is the minibatch's spec (:func:`minibatch_spec`);
+    None draws for the full batch."""
+    shape = sub_spec if sub_spec is not None else spec
+    indices = None
+    if sub_spec is not None:
+        indices = {
+            mod.name: torch.stack(
+                [torch.randint(n_v, (R, smod.n_padded), generator=generator, device=device)
+                 for n_v in mod.n_samples], dim=1)
+            for mod, smod in zip(spec.modalities, sub_spec.modalities)
+        }
+    Ntot = sum(m.n_padded for m in shape.modalities)
+    warp = torch.randn((R, S, shape.n_views, Ntot, shape.n_spatial_dims),
+                       generator=generator, device=device)
+    data = None
+    if not shape.analytic_data_likelihood:
+        data = {
+            mod.name: torch.randn((R, S, shape.n_views * mod.n_padded, mod.n_latent),
+                                  generator=generator, device=device)
+            for mod in shape.modalities
+        }
+    return warp, data, indices
 
 
 def predict_mean(spec: ModelSpec, hp: dict, batch):

@@ -24,6 +24,14 @@ capture. The loop keeps that step's counts, sets the counters back to their
 values before the warm-up and adds the step's counts once per replay, so
 they count the steps a fit runs.
 
+With ``width=R`` the step trains R restarts at once (``fit_multistart``):
+the loss function returns their R losses, the step differentiates their
+sum, so each restart's parameters get their own loss's gradient, and the
+loop records the R losses of every step. Each optimizer the loop accepts
+(``ZERO_STATE_OPTIMIZERS``) updates each element from that element's
+gradient and state alone, so one optimizer over R-stacked parameters is R
+independent optimizers, as the JAX package's ``vmap`` of ``tx.update`` is.
+
 On the CPU nothing is captured and the same step runs eagerly.
 """
 
@@ -37,7 +45,10 @@ import torch
 
 from .. import ops
 
-__all__ = ["CosineDecayAdam", "TrainLoop", "check_zero_state"]
+__all__ = ["CosineDecayAdam", "DEFAULT_LR", "TrainLoop", "check_zero_state", "resolve_recipe",
+           "same_factory"]
+
+DEFAULT_LR = 1e-2
 
 # Steps between two host copies at most (the device buffers' length).
 CAPACITY = 1024
@@ -109,6 +120,29 @@ class CosineDecayAdam:
         return self._values[np.minimum(np.asarray(steps), self.horizon)]
 
 
+def resolve_recipe(recipe, lr, n_epochs, optimizer, warp_temperature_schedule):
+    """Expand a named recipe into (optimizer factory, temperature schedule),
+    as the JAX package's ``_resolve_recipe``: "accurate" is
+    :class:`CosineDecayAdam` over ``n_epochs`` with the temperature-0
+    objective; an optimizer or schedule given explicitly wins."""
+    if recipe == "accurate":
+        if optimizer is None:
+            optimizer = CosineDecayAdam(lr, n_epochs)
+        if warp_temperature_schedule is None:
+            warp_temperature_schedule = lambda t: np.zeros_like(np.asarray(t, np.float32))
+    return optimizer, warp_temperature_schedule
+
+
+def same_factory(a, b) -> bool:
+    """Whether a train loop built by optimizer factory ``a`` serves ``b``: the
+    same object, or two CosineDecayAdam at one lr (the graph reads the
+    learning rate from a tensor each step, so their horizons do not enter
+    it; each fit takes its schedule from its own factory)."""
+    if type(a) is CosineDecayAdam and type(b) is CosineDecayAdam:
+        return a.lr == b.lr
+    return a is b
+
+
 class TrainLoop:
     """Runs training steps of ``loss_fn`` under ``optimizer``: on CUDA one
     replay each of a captured step, on the CPU the same step eagerly.
@@ -117,8 +151,10 @@ class TrainLoop:
     the step's loss at warp temperature ``temp`` (a 0-d tensor), drawing its
     noise from ``generator``; ``scheduled``: every parameter group's
     learning rate is a tensor that each step sets from the chunk's
-    schedule. Raises when the optimizer's fresh state is not all zeros
-    (:func:`check_zero_state`), and on CUDA when the step cannot be captured.
+    schedule; ``width``: ``loss_fn`` returns that many losses, one a
+    restart, and the step minimizes their sum. Raises when the optimizer's
+    fresh state is not all zeros (:func:`check_zero_state`), and on CUDA
+    when the step cannot be captured.
     """
 
     def __init__(
@@ -128,8 +164,10 @@ class TrainLoop:
         optimizer: torch.optim.Optimizer,
         generator: torch.Generator,
         scheduled: bool = False,
+        width: Optional[int] = None,
     ):
         check_zero_state(optimizer)
+        self.width = width
         self.names = [name for name, _ in named_params]
         self.leaves = [leaf for _, leaf in named_params]
         self.loss_fn, self.optimizer, self.generator = loss_fn, optimizer, generator
@@ -141,7 +179,8 @@ class TrainLoop:
             )
         # Row 0: each step's warp temperature; row 1: its learning rate.
         self._inputs = torch.ones((2, CAPACITY), dtype=torch.float32, device=self.device)
-        self._losses = torch.zeros(CAPACITY, dtype=torch.float32, device=self.device)
+        self._losses = torch.zeros((CAPACITY,) + ((width,) if width else ()),
+                                   dtype=torch.float32, device=self.device)
         self._i = torch.zeros(1, dtype=torch.long, device=self.device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.per_step: dict = {}
@@ -158,9 +197,9 @@ class TrainLoop:
         for group_lr in self._lrs:
             group_lr.copy_(lr.reshape(()))
         loss = self.loss_fn(temp.reshape(()))
-        loss.backward()
+        (loss.sum() if self.width else loss).backward()
         self.optimizer.step()
-        self._losses.index_copy_(0, self._i, loss.detach().reshape(1))
+        self._losses.index_copy_(0, self._i, loss.detach().reshape(self._losses[:1].shape))
         self._i.add_(1)
 
     def _put_back(self, saved):
@@ -228,9 +267,10 @@ class TrainLoop:
     # ------------------------------------------------------------------
     def run(self, temps: np.ndarray, lrs: Optional[np.ndarray] = None) -> np.ndarray:
         """``len(temps)`` steps at those warp temperatures (and learning
-        rates, when scheduled); returns their losses as float64."""
+        rates, when scheduled); returns their losses as float64, (n,) or
+        (n, width)."""
         n = len(temps)
-        out = np.empty(n, np.float64)
+        out = np.empty((n,) + tuple(self._losses.shape[1:]), np.float64)
         for lo in range(0, n, CAPACITY):
             k = min(CAPACITY, n - lo)
             host = np.ones((2, k), np.float32)

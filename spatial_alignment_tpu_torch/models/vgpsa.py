@@ -4,9 +4,10 @@ Counterpart of ``spatial_alignment_tpu/models/vgpsa.py``: construction
 (spec + seeded init), ``fit`` (full-batch or minibatch SVI, any optimizer
 factory, ``recipe="accurate"``, exact resume), ``make_train_step`` /
 ``make_train_loop``, ``save`` / ``load`` / ``attach_data``, ``forward``,
-``predict``, ``loss_fn`` and ``neg_elbo``. On CUDA ``fit`` runs each step
-as one replay of a captured CUDA graph (:mod:`.train`); on the CPU the same
-steps run eagerly.
+``predict``, ``loss_fn`` and ``neg_elbo``; ``reinitialize`` and
+``fit_multistart`` come from :class:`.multistart.MultistartMixin`. On CUDA
+``fit`` runs each step as one replay of a captured CUDA graph
+(:mod:`.train`); on the CPU the same steps run eagerly.
 
 Divergences from the JAX package: optimizer factories ``params ->
 torch.optim.Optimizer`` instead of optax transformations (the default is
@@ -35,6 +36,8 @@ from ..ops.kernels import kernel_name
 from ..utils.checkpoint import load_checkpoint_blob, nest, save_checkpoint, unflatten_into
 from . import core
 from .convert import tensors_from_numpy
+from ._trees import copy_into, leaves, named_leaves, tree_map
+from .multistart import MultistartMixin
 from .params import init_params, merge_hyperparams
 from .spec import (
     ModelSpec,
@@ -48,32 +51,11 @@ from .spec import (
     unpack_points,
     view_mask,
 )
-from .train import CosineDecayAdam, TrainLoop
-
-_DEFAULT_LR = 1e-2
+from .train import DEFAULT_LR, TrainLoop, resolve_recipe, same_factory
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    return [tree]
-
-
-def _named_leaves(tree, prefix: str = "") -> list:
-    """[(slash-joined path, leaf)] in :func:`_leaves` order."""
-    if isinstance(tree, dict):
-        return [nl for k, v in tree.items() for nl in _named_leaves(v, f"{prefix}{k}/")]
-    return [(prefix[:-1], tree)]
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 class _hybridmethod:
@@ -89,30 +71,7 @@ class _hybridmethod:
         return partial(self.fn, obj if obj is not None else objtype)
 
 
-def _resolve_recipe(recipe, lr, n_epochs, optimizer, warp_temperature_schedule):
-    """Expand a named recipe into (optimizer factory, temperature schedule),
-    as the JAX package's ``_resolve_recipe``: "accurate" is
-    :class:`.train.CosineDecayAdam` over ``n_epochs`` with the temperature-0
-    objective; an optimizer or schedule given explicitly wins."""
-    if recipe == "accurate":
-        if optimizer is None:
-            optimizer = CosineDecayAdam(lr, n_epochs)
-        if warp_temperature_schedule is None:
-            warp_temperature_schedule = lambda t: np.zeros_like(np.asarray(t, np.float32))
-    return optimizer, warp_temperature_schedule
-
-
-def _same_factory(a, b) -> bool:
-    """Whether a train loop built by optimizer factory ``a`` serves ``b``: the
-    same object, or two CosineDecayAdam at one lr (the graph reads the
-    learning rate from a tensor each step, so their horizons do not enter
-    it; each fit takes its schedule from its own factory)."""
-    if type(a) is CosineDecayAdam and type(b) is CosineDecayAdam:
-        return a.lr == b.lr
-    return a is b
-
-
-class VariationalGPSA:
+class VariationalGPSA(MultistartMixin):
     """Deep-GP spatial alignment model (PyTorch port of the JAX model).
 
     ``device=None`` means ``"cuda"``; without a CUDA device that raises,
@@ -198,6 +157,35 @@ class VariationalGPSA:
             device=self.device,
         )
         self._set_state(params, consts, pack_batch(self.spec, data_dict, self.device), seed)
+        # For reinitialize() and fit_multistart: the data and the init options
+        # (host-side re-init), and the constructor's arguments less the data
+        # (a structurally identical model on a train/holdout split).
+        self._init_args = dict(
+            data_dict=data_dict, data_init=data_init, grid_init=grid_init,
+            fixed_warp_kernel_variances=fixed_warp_kernel_variances,
+            fixed_warp_kernel_lengthscales=fixed_warp_kernel_lengthscales,
+            fixed_data_kernel_lengthscales=fixed_data_kernel_lengthscales,
+        )
+        self._ctor_kwargs = dict(
+            m_X_per_view=m_X_per_view, m_G=m_G, data_init=data_init, grid_init=grid_init,
+            n_noise_variance_params=n_noise_variance_params,
+            kernel_func_warp=kernel_func_warp, kernel_func_data=kernel_func_data,
+            n_latent_gps=n_latent_gps, mean_function=mean_function,
+            mean_penalty_param=mean_penalty_param,
+            fixed_warp_kernel_variances=fixed_warp_kernel_variances,
+            fixed_warp_kernel_lengthscales=fixed_warp_kernel_lengthscales,
+            fixed_data_kernel_lengthscales=fixed_data_kernel_lengthscales,
+            fixed_view_idx=fixed_view_idx, seed=seed,
+            reference_sample_scale=reference_sample_scale, diagonal_offset=diagonal_offset,
+            pad_multiple=pad_multiple, data_chunk_size=data_chunk_size,
+            analytic_data_likelihood=analytic_data_likelihood,
+            svgp_matmul_precision=svgp_matmul_precision,
+            svgp_variance_precision=svgp_variance_precision,
+            svgp_solve_mode=svgp_solve_mode, triangular_variational=triangular_variational,
+            whitened_variational=whitened_variational, cholesky_impl=cholesky_impl,
+            quad_diag_impl=quad_diag_impl, fused_factor_inverse=fused_factor_inverse,
+            device=self.device,
+        )
         self.fixed_view_idx = fixed_view_idx
         self.n_latent_gps = (
             n_latent_gps if n_latent_gps is not None else {m: None for m in self.spec.modality_names}
@@ -205,7 +193,7 @@ class VariationalGPSA:
 
     def _set_state(self, params, consts, batch, seed: int):
         """Install params/consts/batch and the bookkeeping derived from the spec."""
-        self.params = _map(lambda t: t.detach().requires_grad_(True), params)
+        self.params = tree_map(lambda t: t.detach().requires_grad_(True), params)
         self.consts = consts
         self._batch = batch
         self._gen = torch.Generator(device=self.device)
@@ -250,7 +238,7 @@ class VariationalGPSA:
         return _as_numpy(self.params["Gtilde"])
 
     def parameters(self):
-        return _leaves(self.params)
+        return leaves(self.params)
 
     def create_view_idx_dict(self, data_dict):
         """view_idx, Ns, Ps, n_total of an arbitrary data_dict."""
@@ -410,17 +398,18 @@ class VariationalGPSA:
         loss_fn, params, draw = self._loss_fn(minibatch_size), self.params, self._draw_noise
         return lambda temp: loss_fn(params, S, temp, *(draw(S) if draw else (None, None)))
 
-    def _optimizer(self, optimizer, lr: float) -> torch.optim.Optimizer:
+    def _optimizer(self, optimizer, lr: float, params=None) -> torch.optim.Optimizer:
         """``optimizer(params)``, or by default Adam at ``lr`` (capturable on
-        CUDA, where fit() captures its step)."""
+        CUDA, where fit() captures its step); ``params`` defaults to the
+        model's parameters."""
+        params = self.parameters() if params is None else params
         if optimizer is None:
-            return torch.optim.Adam(self.parameters(), lr=lr,
-                                    capturable=self.device.type == "cuda")
-        return optimizer(self.parameters())
+            return torch.optim.Adam(params, lr=lr, capturable=self.device.type == "cuda")
+        return optimizer(params)
 
     def make_train_step(
         self,
-        lr: float = _DEFAULT_LR,
+        lr: float = DEFAULT_LR,
         S: int = 5,
         optimizer=None,
         minibatch_size: Optional[int] = None,
@@ -447,7 +436,7 @@ class VariationalGPSA:
 
     def make_train_loop(
         self,
-        lr: float = _DEFAULT_LR,
+        lr: float = DEFAULT_LR,
         S: int = 5,
         optimizer=None,
         minibatch_size: Optional[int] = None,
@@ -458,7 +447,7 @@ class VariationalGPSA:
         lrs)`` runs ``len(temps)`` steps and returns their losses;
         ``loop.optimizer`` is the optimizer, its state fresh."""
         return TrainLoop(
-            _named_leaves(self.params),
+            named_leaves(self.params),
             self._step_loss(S, minibatch_size),
             self._optimizer(optimizer, lr),
             self._gen,
@@ -469,17 +458,17 @@ class VariationalGPSA:
         """make_train_loop, reused across fit() calls while nothing it holds
         changed: the same (lr, S, minibatch_size), Gram switch
         (``set_gram_force``, read at capture), optimizer factory
-        (``_same_factory``), spec, generator and the same tensors of params,
+        (``same_factory``), spec, generator and the same tensors of params,
         consts and batch (a graph holds their addresses; average_last and
         attach_data rebind them and miss)."""
         key = (lr, S, minibatch_size, gram_force())
-        held = (self.spec, self._gen, self._draw_noise, *_leaves(self.params),
-                *_leaves(self.consts), *_leaves(self._batch))
+        held = (self.spec, self._gen, self._draw_noise, *leaves(self.params),
+                *leaves(self.consts), *leaves(self._batch))
         cache = self.__dict__.get("_train_loop_cache")
         if (
             cache is not None
             and cache["key"] == key
-            and _same_factory(cache["optimizer"], optimizer)
+            and same_factory(cache["optimizer"], optimizer)
             and len(cache["held"]) == len(held)
             and all(a is b for a, b in zip(cache["held"], held))
         ):
@@ -492,7 +481,7 @@ class VariationalGPSA:
     def fit(
         self,
         n_epochs: int,
-        lr: float = _DEFAULT_LR,
+        lr: float = DEFAULT_LR,
         S: int = 5,
         print_every: Optional[int] = None,
         callback=None,
@@ -556,7 +545,7 @@ class VariationalGPSA:
             self._assign(blob)
             self._restore_training_state(blob, require_generator=True)
             epoch0 = self._epoch
-        optimizer, warp_temperature_schedule = _resolve_recipe(
+        optimizer, warp_temperature_schedule = resolve_recipe(
             recipe, lr, epoch0 + n_epochs, optimizer, warp_temperature_schedule
         )
         lr_schedule = getattr(optimizer, "lr_schedule", None)
@@ -595,16 +584,16 @@ class VariationalGPSA:
             if average_last and t > avg_start:
                 with torch.no_grad():
                     if params_sum is None:
-                        params_sum = _map(lambda a: a.detach().clone(), self.params)
+                        params_sum = tree_map(lambda a: a.detach().clone(), self.params)
                     else:
-                        params_sum = _map_pair(lambda s, a: s + a.detach(), params_sum, self.params)
+                        params_sum = tree_map(lambda s, a: s + a.detach(), params_sum, self.params)
                 n_snapshots += 1
             if convergence_checker is not None and convergence_checker(t - 1, losses):
                 losses = losses[:t]
                 break
         if n_snapshots:
-            avg = _map(lambda s: s / n_snapshots, params_sum)
-            self.params = _map(lambda a: a.requires_grad_(True), avg)
+            avg = tree_map(lambda s: s / n_snapshots, params_sum)
+            self.params = tree_map(lambda a: a.requires_grad_(True), avg)
             # The optimizer state and the generator belong to the trajectory's
             # end, not to the average: save() writes no training state.
             self._opt_state = self._rng_state = None
@@ -677,6 +666,8 @@ class VariationalGPSA:
         model.spec = spec
         model._set_state(params, consts, batch, int(blob["manifest"].get("seed", 0)))
         model._restore_training_state(blob)
+        # reinitialize() and fit_multistart need the original data (attach_data).
+        model._init_args = model._ctor_kwargs = None
         fixed = [i for i, b in enumerate(spec.fixed_view_mask) if b]
         model.fixed_view_idx = None if not fixed else (fixed[0] if len(fixed) == 1 else fixed)
         model.n_latent_gps = {m.name: (m.n_latent if m.use_lmc else None)
@@ -686,12 +677,8 @@ class VariationalGPSA:
     def _assign(self, blob: dict):
         """Copy a checkpoint's params and consts into the model's tensors
         (in place: a captured step keeps reading them)."""
-        params = unflatten_into(self.params, blob["params"])
-        consts = unflatten_into(self.consts, blob["consts"])
-        with torch.no_grad():
-            for dst, src in zip(_leaves(self.params) + _leaves(self.consts),
-                                _leaves(params) + _leaves(consts)):
-                dst.copy_(src)
+        copy_into(self.params, unflatten_into(self.params, blob["params"]))
+        copy_into(self.consts, unflatten_into(self.consts, blob["consts"]))
 
     def _restore_training_state(self, blob: dict, require_generator: bool = False):
         """Take the checkpoint's epoch and, when it was saved on this kind of
@@ -711,11 +698,23 @@ class VariationalGPSA:
         self._rng_state = torch.from_numpy(np.array(blob["torch_rng"], np.uint8))
         self._gen.set_state(self._rng_state)
 
-    def attach_data(self, data_dict: Dict[str, dict]):
+    def attach_data(
+        self,
+        data_dict: Dict[str, dict],
+        data_init: bool = True,
+        grid_init: bool = False,
+        fixed_warp_kernel_variances=None,
+        fixed_warp_kernel_lengthscales=None,
+        fixed_data_kernel_lengthscales=None,
+    ):
         """Attach the training data to a model whose checkpoint was saved
-        with ``include_data=False``, so it can fit again. ``data_dict`` must
-        have the layout the spec was built from (modalities, per-view counts,
-        spatial and output dimensions); it is checked before packing."""
+        with ``include_data=False`` (or that ``VariationalGPSA.load`` built),
+        so it can fit, ``reinitialize`` and ``fit_multistart`` again.
+        ``data_dict`` must have the layout the spec was built from
+        (modalities, per-view counts, spatial and output dimensions); it is
+        checked before packing. ``data_init`` / ``grid_init`` and the fixed
+        kernel values restore the options ``reinitialize`` draws with (a
+        spec with a fixed value requires it here)."""
         for mod in self.spec.modalities:
             if mod.name not in data_dict:
                 raise ValueError(f"data_dict is missing modality {mod.name!r}")
@@ -733,19 +732,25 @@ class VariationalGPSA:
             if Y.shape != (sum(nsl), mod.n_outputs):
                 raise ValueError(f"{mod.name}: outputs shape {Y.shape} != "
                                  f"({sum(nsl)}, {mod.n_outputs})")
+        fixed = dict(
+            fixed_warp_kernel_variances=fixed_warp_kernel_variances,
+            fixed_warp_kernel_lengthscales=fixed_warp_kernel_lengthscales,
+            fixed_data_kernel_lengthscales=fixed_data_kernel_lengthscales,
+        )
+        for flag, val in fixed.items():
+            if getattr(self.spec, flag) and val is None:
+                raise ValueError(
+                    f"this checkpoint's spec has {flag}=True; pass the "
+                    f"original fixed values to attach_data({flag}=...) so "
+                    "reinitialize()/multistart rebuild the same model"
+                )
         self._batch = pack_batch(self.spec, data_dict, self.device)
+        self._init_args = dict(data_dict=data_dict, data_init=data_init, grid_init=grid_init,
+                               **fixed)
+        # Any cached train loop closed over the old (absent) batch.
         self.__dict__.pop("_train_loop_cache", None)
+        self.__dict__.pop("_vec_loop_cache", None)
         return self
-
-    def fit_multistart(self, *args, **kwargs):
-        """Not ported yet; raises."""
-        raise _not_ported("fit_multistart", "A5")
-
-
-def _map_pair(fn, a, b):
-    if isinstance(a, dict):
-        return {k: _map_pair(fn, a[k], b[k]) for k in a}
-    return fn(a, b)
 
 
 class GPSA(VariationalGPSA):

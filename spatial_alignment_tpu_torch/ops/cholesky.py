@@ -28,6 +28,7 @@ import math
 import torch
 
 from . import _build
+from ._restart_axis import to_front
 
 __all__ = [
     "cholesky",
@@ -209,15 +210,22 @@ def murray_backward(L: torch.Tensor, Lbar: torch.Tensor) -> torch.Tensor:
 
 class _Cholesky(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a):
-        L = _forward(a)
-        ctx.save_for_backward(L)
-        return L
+    def forward(a):
+        return _forward(a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, Lbar):
         (L,) = ctx.saved_tensors
         return murray_backward(L, Lbar)
+
+    @staticmethod
+    def vmap(info, in_dims, a):
+        # The vmapped dim joins the leading batch dims: one launch.
+        return _Cholesky.apply(to_front(a, in_dims[0], info.batch_size)), 0
 
 
 def cholesky(a: torch.Tensor) -> torch.Tensor:

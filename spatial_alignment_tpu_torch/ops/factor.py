@@ -37,6 +37,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from ._restart_axis import to_front
 from .cholesky import murray_backward
 
 __all__ = [
@@ -147,10 +148,12 @@ def _forward(a: torch.Tensor):
 
 class _CholeskyAndInverse(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a):
-        L, Linv = _forward(a)
-        ctx.save_for_backward(L, Linv)
-        return L, Linv
+    def forward(a):
+        return _forward(a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*output)
 
     @staticmethod
     def backward(ctx, Lbar, Linvbar):
@@ -161,6 +164,10 @@ class _CholeskyAndInverse(torch.autograd.Function):
             G = torch.linalg.solve_triangular(L.transpose(-1, -2), Linvbar, upper=True)
             Lbar = Lbar - torch.tril(G @ Linv.transpose(-1, -2))
         return murray_backward(L, Lbar)
+
+    @staticmethod
+    def vmap(info, in_dims, a):
+        return _CholeskyAndInverse.apply(to_front(a, in_dims[0], info.batch_size)), (0, 0)
 
 
 def cholesky_and_inverse(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

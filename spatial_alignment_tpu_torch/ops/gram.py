@@ -226,11 +226,13 @@ def _param_grad(full: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 class _Gram(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x1, x2, log_ls, log_var, kind, force):
-        K = _forward(x1, x2, log_ls, log_var, kind, force)
-        ctx.kind = kind
-        ctx.save_for_backward(x1, x2, log_ls, log_var, K)
-        return K
+    def forward(x1, x2, log_ls, log_var, kind, force):
+        return _forward(x1, x2, log_ls, log_var, kind, force)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x1, x2, log_ls, log_var, ctx.kind, _ = inputs
+        ctx.save_for_backward(x1, x2, log_ls, log_var, output)
 
     @staticmethod
     def backward(ctx, g):
@@ -273,6 +275,25 @@ class _Gram(torch.autograd.Function):
             None,
             None,
         )
+
+    @staticmethod
+    def vmap(info, in_dims, x1, x2, log_ls, log_var, kind, force):
+        # The vmapped dim becomes the first leading batch dim of the Gram:
+        # each batched input gets it in front of its own leading dims, padded
+        # with 1s to the rank k of their broadcast; a batched parameter of
+        # one value a restart becomes one value per leading batch entry.
+        # Unbatched inputs broadcast from the right as they are.
+        R = info.batch_size
+        inputs = (x1, x2, log_ls, log_var)
+        front = [None if d is None else a.movedim(d, 0) for a, d in zip(inputs, in_dims)]
+        # Each input's shape within one restart, and its leading batch dims.
+        own = [tuple(a.shape if f is None else f.shape[1:]) for a, f in zip(inputs, front)]
+        lead = [own[0][:-2], own[1][:-2]] + [() if math.prod(p) == 1 else p for p in own[2:]]
+        k = max(len(b) for b in lead)
+        tails = [own[0][-2:], own[1][-2:], (), ()]
+        args = [a if f is None else f.reshape((R,) + (1,) * (k - len(b)) + b + t)
+                for a, f, b, t in zip(inputs, front, lead, tails)]
+        return _Gram.apply(*args, kind, force), 0
 
 
 def gram(x1, x2, log_ls, log_var, kind: str = "rbf", force: Optional[bool] = None):

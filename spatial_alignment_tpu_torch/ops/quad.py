@@ -44,6 +44,7 @@ import math
 import torch
 
 from . import _build
+from ._restart_axis import to_front
 
 __all__ = [
     "quad_diag",
@@ -223,14 +224,33 @@ def _bwd(x, F, dy):
 
 class _QuadDiag(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, F):
-        ctx.save_for_backward(x, F)
+    def forward(x, F):
         return _fwd(x, F)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, dy):
         x, F = ctx.saved_tensors
         return _bwd(x, F, dy)
+
+    @staticmethod
+    def vmap(info, in_dims, x, F):
+        # x (R, G, N, m) folds into (R G, N, m). F keeps the shared form only
+        # when it is the same for every restart; otherwise each of the R G
+        # groups gets its own copy (one launch either way).
+        R = info.batch_size
+        x = to_front(x, in_dims[0], R)
+        G = x.shape[1]
+        if in_dims[1] is not None or F.dim() == 4:
+            F = to_front(F, in_dims[1], R)
+            if F.dim() == 4:  # (R, L, m, m): shared within each restart
+                F = F.unsqueeze(1).expand(R, G, *F.shape[1:])
+            F = F.reshape((R * G,) + tuple(F.shape[2:]))
+        out = _QuadDiag.apply(x.reshape((R * G,) + tuple(x.shape[2:])), F)
+        return out.reshape((R, G) + tuple(out.shape[1:])), 0
 
 
 def _canonical_factors(factors: torch.Tensor, lead, G: int) -> torch.Tensor:

@@ -34,6 +34,7 @@ import math
 import torch
 
 from . import _build
+from ._restart_axis import to_front
 
 __all__ = [
     "tri_solve",
@@ -167,11 +168,13 @@ def _inverse(L):
 
 class _TriSolve(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, L, B, trans):
-        X = _solve(L, B, trans)
-        ctx.trans = trans
-        ctx.save_for_backward(L, X)
-        return X
+    def forward(L, B, trans):
+        return _solve(L, B, trans)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        L, _, ctx.trans = inputs
+        ctx.save_for_backward(L, output)
 
     @staticmethod
     def backward(ctx, Xbar):
@@ -185,19 +188,31 @@ class _TriSolve(torch.autograd.Function):
                 Lbar = -torch.tril(Bbar @ X.transpose(-1, -2))
         return Lbar, Bbar, None
 
+    @staticmethod
+    def vmap(info, in_dims, L, B, trans):
+        # L and B carry the same batch dims; the vmapped one joins them.
+        R = info.batch_size
+        return _TriSolve.apply(to_front(L, in_dims[0], R), to_front(B, in_dims[1], R), trans), 0
+
 
 class _TriInverse(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, L):
-        X = _inverse(L)
-        ctx.save_for_backward(L, X)
-        return X
+    def forward(L):
+        return _inverse(L)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
 
     @staticmethod
     def backward(ctx, Xbar):
         L, X = ctx.saved_tensors
         G = _solve(L, Xbar, True)
         return -torch.tril(G @ X.transpose(-1, -2))
+
+    @staticmethod
+    def vmap(info, in_dims, L):
+        return _TriInverse.apply(to_front(L, in_dims[0], info.batch_size)), 0
 
 
 def tri_solve(L: torch.Tensor, B: torch.Tensor, trans: bool = False) -> torch.Tensor:

@@ -747,7 +747,7 @@ def test_cuda_resume_is_bit_for_bit(cuda_device, tmp_path, recipe):
     """fit(8) against fit(4), save, VariationalGPSA.load, fit(4,
     resume_from=): the same losses and parameters, Adam moments and the
     generator's offset restored (with the recipe over the total horizon)."""
-    from spatial_alignment_tpu_torch.models.vgpsa import _resolve_recipe
+    from spatial_alignment_tpu_torch.models.train import resolve_recipe as _resolve_recipe
 
     ref = _graph_model(cuda_device, 50)
     full = ref.fit(n_epochs=8, S=2, recipe=recipe)
@@ -814,3 +814,168 @@ def test_cuda_adam_matches_float64_adam(cuda_device, mode):
         err = np.abs(param.detach().cpu().numpy().astype(np.float64) - want[t])
         limit = (t + 1) * (2.0**-24 * np.abs(want[t]).max() + 2.0**-16 * lr)
         assert err.max() <= limit, (mode, t, err.max(), limit)
+
+
+# ---------------------------------------------------------------------------
+# fit_multistart: the restart axis folded into each kernel's batch
+# ---------------------------------------------------------------------------
+
+
+def _vmapped(fn, *args, in_dims=0):
+    """``torch.func.vmap(fn)`` over the leading restart axis, with the
+    launches it made of each kernel."""
+    from spatial_alignment_tpu_torch import ops
+
+    before = ops.read_counters()
+    out = torch.func.vmap(fn, in_dims=in_dims)(*args)
+    torch.cuda.synchronize()
+    after = ops.read_counters()
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("kernel", ["cholesky", "trisolve", "trisolve_shared_rhs", "tri_inverse",
+                                    "quad_shared", "quad_per_view", "factor", "gram"])
+def test_cuda_kernels_at_restart_folded_shapes(cuda_device, kernel):
+    """Each kernel under the restart vmap, R = 3 restarts of the shapes an
+    m = 50 step hands it: one launch for all restarts, and each restart's
+    result that restart's plain version's (rel 1e-4; the Gram 1e-5)."""
+    rng = np.random.default_rng(30)
+    R, dev = 3, cuda_device
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if kernel == "cholesky":
+        A = t(_spd(rng, R * 4, 50).reshape(R, 4, 50, 50))
+        out, n = _vmapped(ch.cholesky, A)
+        want = ch.cholesky_plain(A.cpu())
+    elif kernel in ("trisolve", "trisolve_shared_rhs"):
+        L = t(_factor(rng, R * 2, 50).reshape(R, 2, 50, 50))
+        B = t(rng.standard_normal((2, 50, 5)).astype(np.float32))
+        if kernel == "trisolve":
+            B = B.expand(R, 2, 50, 5).contiguous() + 1.0
+            out, n = _vmapped(lambda l, b: ts.tri_solve(l, b, True), L, B)
+            want = ts.tri_solve_plain(L.cpu(), B.cpu(), True)
+        else:  # the right-hand side the same for every restart
+            out, n = _vmapped(lambda l, b: ts.tri_solve(l, b), L, B, in_dims=(0, None))
+            want = ts.tri_solve_plain(L.cpu(), B.cpu().expand(R, 2, 50, 5))
+    elif kernel == "tri_inverse":
+        L = t(_factor(rng, R * 2, 50).reshape(R, 2, 50, 50))
+        out, n = _vmapped(ts.tri_inverse, L)
+        want = ts.tri_inverse_plain(L.cpu())
+    elif kernel in ("quad_shared", "quad_per_view"):
+        x = t(rng.standard_normal((R, 5, 300, 50)).astype(np.float32))
+        f_shape = (R, 4, 50, 50) if kernel == "quad_shared" else (R, 5, 2, 50, 50)
+        F = t(0.1 * rng.standard_normal(f_shape).astype(np.float32))
+        out, n = _vmapped(quad.quad_diag, x, F)
+        want = torch.stack([quad.quad_diag_plain(x[r].cpu(), F[r].cpu()) for r in range(R)])
+    elif kernel == "factor":
+        A = t(_spd(rng, R * 4, 50).reshape(R, 4, 50, 50))
+        out, n = _vmapped(factor.cholesky_and_inverse, A)
+        plain = factor.cholesky_and_inverse_plain(A.cpu())
+        out, want = torch.stack(out), torch.stack(plain)
+    else:  # gram: per-restart parameters, data points shared by the restarts
+        x1 = t(rng.uniform(0, 10, (R, 50, 2)).astype(np.float32))
+        x2 = t(rng.uniform(0, 10, (5, 400, 2)).astype(np.float32))
+        ls, var = t(rng.uniform(-0.5, 1.0, R).astype(np.float32)), t(np.zeros(R, np.float32))
+        out, n = _vmapped(lambda a, b, l, v: gm.gram(a, b, l, v, force=True), x1, x2, ls, var,
+                          in_dims=(0, None, 0, 0))
+        want = torch.stack([gm.gram_plain(x1[r].cpu(), x2.cpu(), ls[r].cpu(), var[r].cpu())
+                            for r in range(R)])
+        assert _rel(out, want) <= 1e-5 and n == {"gram.launches": 1}
+        return
+    assert _rel(out, want) <= 1e-4
+    launched = {"cholesky": "cholesky.launches", "tri_inverse": "trisolve.launches",
+                "factor": "factor.launches"}.get(kernel)
+    if kernel.startswith("trisolve"):
+        launched = "trisolve.launches"
+    if kernel.startswith("quad"):
+        launched = "quad.fwd_launches"
+    assert n == {launched: 1}, n
+
+
+def _restart_model(device, opt_ins, **kw):
+    """The m = 50 grid model with lengthscales 0.7, which keep its Grams
+    well conditioned (the m = 64 parity model's)."""
+    model = _graph_model(device, 50, opt_ins, **kw)
+    with torch.no_grad():
+        model.params["warp_kernel_lengthscales"].fill_(math.log(0.7))
+        model.params["data_kernel_lengthscale"].fill_(math.log(0.7))
+    return model
+
+
+def _restart_eager(model, values, n, S=2, minibatch=None):
+    """n eager R-wide steps from the stacked ``values`` (a fresh Adam, the
+    generator reseeded with 0, as ``_fit_restarts_vectorized`` starts)."""
+    from spatial_alignment_tpu_torch.models._trees import leaves, tree_map
+
+    R = leaves(values)[0].shape[0]
+    params = tree_map(lambda v: v.detach().clone().requires_grad_(True), values)
+    loss_fn = model._restart_step_loss(S, minibatch, R, params)
+    opt = model._optimizer(None, 1e-2, leaves(params))
+    model._gen.manual_seed(0)
+    losses = []
+    for _ in range(n):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(1.0)
+        loss.sum().backward()
+        opt.step()
+        losses.append(loss.detach())
+    return torch.stack(losses).cpu().numpy().astype(np.float64), params
+
+
+@pytest.mark.parametrize("opt_ins,minibatch", [(False, None), (True, None), (False, 64)],
+                         ids=["default", "opt_ins", "minibatch_forced_gram"])
+def test_cuda_restart_step_captured_matches_eager(cuda_device, opt_ins, minibatch):
+    """The R-wide step captured and replayed (``_fit_restarts_vectorized``)
+    against the same step run eagerly from the same parameters and
+    generator: losses and parameters bit for bit; each kernel launched as
+    often a step as one restart's step launches it."""
+    from spatial_alignment_tpu_torch import ops
+    from spatial_alignment_tpu_torch.models._trees import leaves
+
+    model = _restart_model(cuda_device, opt_ins)
+    R, n = 3, 4
+    gm.set_gram_force(True if minibatch else None)
+    try:
+        values = model._restart_inits(R, 0)
+        before = ops.read_counters()
+        params, losses = model._fit_restarts_vectorized(n, R, 0, S=2, minibatch_size=minibatch)
+        after = ops.read_counters()
+        assert model._vec_loop_cache["loop"].graph is not None
+        want, eager = _restart_eager(model, values, n, minibatch=minibatch)
+        per_step = model._vec_loop_cache["loop"].per_step
+        one = model.make_train_loop(S=2, minibatch_size=minibatch).per_step
+    finally:
+        gm.set_gram_force(None)
+    np.testing.assert_array_equal(losses.T, want)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(params), leaves(eager)))
+    assert per_step == one and any(per_step.values())
+    assert {k: after[k] - before[k] for k in after} == {k: n * v for k, v in per_step.items()}
+
+
+@pytest.mark.parametrize("opt_ins", [False, True], ids=["default", "opt_ins"])
+def test_cuda_restart_step_matches_each_restart_alone(cuda_device, opt_ins):
+    """One R-wide loss and gradient against each restart's own, from the
+    same parameters and draws: losses rel 1e-5, gradients rel 1e-3 per
+    leaf (float32 in another summation order: batched products of another
+    batch count, the quad backward's split over another grid)."""
+    from spatial_alignment_tpu_torch.models._trees import leaves, tree_map
+
+    model = _restart_model(cuda_device, opt_ins)
+    R, S = 3, 2
+    values = model._restart_inits(R, 0)
+    with torch.no_grad():
+        values["warp_kernel_lengthscales"].fill_(math.log(0.7))
+        values["data_kernel_lengthscale"].fill_(math.log(0.7))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    wn, dn, _ = core.draw_restart_noise(model.spec, R, S, gen, model.device)
+    model._draw_restart_noise = lambda R_, S_: (wn, dn, None)
+    params = tree_map(lambda v: v.clone().requires_grad_(True), values)
+    losses = model._restart_step_loss(S, None, R, params)(1.0)
+    losses.sum().backward()
+    for r in range(R):
+        alone = tree_map(lambda v: v[r].clone().requires_grad_(True), values)
+        loss = core.negative_elbo(model.spec, alone, model.consts, model._batch, S, 1.0,
+                                  warp_noise=wn[r], data_noise={k: v[r] for k, v in dn.items()})
+        loss.backward()
+        assert _rel(losses[r], loss) <= 1e-5
+        for a, b in zip(leaves(params), leaves(alone)):
+            assert _rel(a.grad[r], b.grad) <= 1e-3

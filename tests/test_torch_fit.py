@@ -109,15 +109,16 @@ def test_builders_default_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize(
     "call",
-    [lambda m: m.fit_multistart(n_restarts=2, n_epochs=1),
-     lambda m: m.forward({"expression": np.zeros((24, 2), np.float32)}, G_test=object())],
-    ids=["fit_multistart", "forward_G_test"],
+    [lambda m, dd: VariationalGPSA(dd, m_X_per_view=4, m_G=4, device="cpu",
+                                   triangular_variational=True),
+     lambda m, dd: m.forward({"expression": np.zeros((24, 2), np.float32)}, G_test=object())],
+    ids=["triangular_variational", "forward_G_test"],
 )
 def test_entry_points_outside_the_slice_raise(call):
     dd = make_two_view_data(n_per_view=12, n_outputs=2)
     model = VariationalGPSA(dd, m_X_per_view=4, m_G=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call(model)
+        call(model, dd)
 
 
 def test_fit_average_last_and_callback():

@@ -31,6 +31,9 @@ import spatial_alignment_tpu_torch.models.train
 import spatial_alignment_tpu_torch.utils.checkpoint
 import spatial_alignment_tpu_torch.utils.convergence
 import spatial_alignment_tpu_torch.utils.profiling
+import spatial_alignment_tpu_torch.utils.prealign
+import spatial_alignment_tpu_torch.utils.ot
+import spatial_alignment_tpu_torch.models.multistart
 print(json.dumps(sorted(sys.modules)))
 """
 

@@ -25,7 +25,7 @@ from spatial_alignment_tpu.utils import convergence as jconv
 from spatial_alignment_tpu_torch import VariationalGPSA
 from spatial_alignment_tpu_torch.models import core
 from spatial_alignment_tpu_torch.models.train import CosineDecayAdam
-from spatial_alignment_tpu_torch.models.vgpsa import _resolve_recipe
+from spatial_alignment_tpu_torch.models.train import resolve_recipe as _resolve_recipe
 from spatial_alignment_tpu_torch.utils import checkpoint as ckpt
 from spatial_alignment_tpu_torch.utils import convergence as tconv
 from spatial_alignment_tpu_torch.utils import profiling
