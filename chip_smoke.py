@@ -17,7 +17,11 @@ m = 384; and the 100k-spot minibatch fit (``fit(minibatch_size=4096)``,
 ``set_gram_force(True)`` (cross-Gram kernel); and ``fit_multistart``,
 its restarts trained as one captured step whose restart axis is folded
 into every kernel's batch, on the m = 50, both m = 200 and the forced 100k
-models. Every ``fit()`` runs its
+models; and the triangular and whitened variational parameterizations
+(bench.py's fourth key at m = 50, the m = 200 model in both, the whitened
+one also with the opt-ins, which sends its width-N solves to the solve
+kernel, and the forced 100k model whitened) with ``forward(G_test=)``
+imputation. Every ``fit()`` runs its
 step as replays of a captured CUDA graph, so every kernel of every path
 launches inside the graph. The launch counts of a captured fit are the
 captured step's counts times its replays: each fit_* phase holds them
@@ -57,6 +61,14 @@ JSON line each:
              the expansion form, with the bfloat16 store, two launches
              bit-equal, its row split, and beside its time an empty
              kernel's, the floor of a launch
+  kernels_variational  the Cholesky at the Kuu-only slabs of the
+             triangular and whitened routes ((2, 200, 200), (2, 100, 100)),
+             the solve at the whitened opt-in model's width-N shapes (L
+             (200, 200) shared, B (5, 200, 4050); L (1, 200, 200), B (1,
+             200, 2025); both orientations) and the fused factor at the
+             triangular opt-in model's (2, 200, 200), captured from one loss
+             and gradient of each, against the plain version, timed beside
+             the bound and the library call
   fit_m200   the full-width slice: m = 200, N = 4,050, 10-latent LMC, 200 steps
   fit_m50    the m = 50 two-view grid, no LMC, 300 steps
   fit_m200_pallas  the same model and data as fit_m200 with the opt-ins,
@@ -68,6 +80,27 @@ JSON line each:
   fit_m384_pallas  the same model with the opt-ins, 50 steps: exact
              launches a step of every kernel, first loss beside fit_m384's
   predict    predict() and forward(S=5) on the m = 200 models
+  fit_m50_triangular  bench.py's fourth key (triangular_variational, m = 50,
+             kl_inverse) on fit_m50's grid, 300 steps: 2 Cholesky a step (its
+             aligned error, like fit_m50's, is still above the data's at
+             300 steps; it is held after 700 steps more)
+  fit_m200_triangular, fit_m200_whitened  fit_m200's data and model in
+             each parameterization (the constructor's init for the same
+             seed), 200 steps: 2 Cholesky launches a step
+  fit_m200_whitened_pallas  the whitened model with the opt-ins, 200 steps:
+             2 Cholesky, 4 solves (one width-N solve a layer and its
+             transposed solve), 2 quad forward and 2 backward a step; first
+             loss beside fit_m200_whitened's (1e-3)
+  variational_equivalence  triangular's first loss against the square
+             model's from one set of injected draws (m = 200 and m = 50,
+             1e-4); fit_m200's trained square parameters converted to
+             whitened ones on the host, w = L^-1 (delta - mu_z),
+             A = L^-1 chol(Omega): the two losses at the same draws in
+             float64 on the CPU (1e-9) and in float32 on the card (1e-4)
+  impute     forward(G_test=) on a 64 x 64 grid over fit_m200_whitened's
+             aligned coordinates (S = 5) and on a 250 x 200 grid over the
+             whitened 100k model's; imputation at a view's own aligned
+             means with the noise zeroed against predict()'s F_mean (1e-5)
   fit_mb100k  the 100k-spot configuration of bench.py (two views of 50,000,
              10 genes, m = 100, LMC 10, data_chunk_size 8192) by minibatch
              SVI, B = 4096 a view, four fit() calls of 250 steps: 2 Cholesky,
@@ -77,7 +110,14 @@ JSON line each:
              fit_mb100k's
   fit_mb100k_gram_chunked  the same with data_chunk_size 2048, 100 steps: 5
              Gram launches a step; first loss and peak memory beside the above
-  fit_graph_vs_eager  one line a fit route (all nine above): 20 eager
+  fit_mb100k_gram_whitened  the forced 100k model whitened, trained as its
+             square twin (4 x 250 steps: after one call of 250 the aligned
+             error was still above the data's, 0.371 in one run and 0.156
+             in another): 2 Gram, 2 Cholesky a step
+  variational_routes  each triangular and whitened route beside its square
+             twin of the same run: steps/s, peak memory, the graph's pool;
+             the aligned error, held below the data's
+  fit_graph_vs_eager  one line a fit route (all fourteen above): 20 eager
              make_train_step steps and 20 captured fit() steps from the same
              parameters and generator state, losses and parameters bit for
              bit equal; steps/s and peak memory of each, the graph's pool;
@@ -87,7 +127,7 @@ JSON line each:
   predict_mb100k  predict() over all 100,000 spots of the forced model: 1 + 16
              Gram launches (16 data-layer chunks), finite (100000, .) outputs,
              aligned error below the data's
-  memory_after_fit  the bytes the nine cached graphs keep once fit() has
+  memory_after_fit  the bytes the fourteen cached graphs keep once fit() has
              returned, and predict_mb100k's peak reserved memory with them
              held and with them dropped; the seconds to capture one again
   resume_on_card  twins of the fit_m200 model: fit(40) against fit(20), save,
@@ -121,6 +161,11 @@ JSON line each:
              multistart steps (their real inputs, captured from one R-wide
              loss and gradient of each route) against its plain version,
              times beside the bound and the library call
+  memory_after_multistart  fit_multistart drops its R-wide loop when it
+             returns (each multistart phase records the bytes it kept,
+             held near 0); here each route's R-wide loop is captured again
+             and held: their pools, and predict_mb100k's peak reserved
+             memory with them held and dropped
   profile    (with --profile DIR) device time per step by kernel over 10
              steps of each fit route and each multistart route's R-wide
              step, captured and eager, the device's idle share, the counters
@@ -1230,7 +1275,9 @@ def phase_fit(name, model, n_epochs, S, expect_mode, per_step, minibatch_size=No
               calls=1):
     """Fit ``n_epochs`` steps, in ``calls`` fit() calls of equal length, with
     every count set to 0 just before and read just after; the counts must be
-    exactly ``per_step`` times the steps."""
+    exactly ``per_step`` times the steps. Peak memory is the run's largest
+    allocation, and its rise above what was allocated just before (the
+    fit's own: other models and their graph pools left out)."""
     import numpy as np
     import torch
 
@@ -1238,6 +1285,7 @@ def phase_fit(name, model, n_epochs, S, expect_mode, per_step, minibatch_size=No
           f"{name}: solve mode {model.spec.svgp_solve_mode}, expected {expect_mode}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     reset_counts()
     t0 = time.perf_counter()
     losses = np.concatenate([
@@ -1260,55 +1308,94 @@ def phase_fit(name, model, n_epochs, S, expect_mode, per_step, minibatch_size=No
     peak = torch.cuda.max_memory_allocated()
     # The counts above are the captured step's counts times its replays; over
     # a few replays more, the kernels the profiler saw must equal them.
-    _, window, seen = profiled(lambda: model.fit(n_epochs=WINDOW_STEPS, lr=1e-2, S=S,
-                                                 minibatch_size=minibatch_size))
-    check(seen == window and all(window[k] == v * WINDOW_STEPS for k, v in per_step.items()),
+    _, window, seen, graphs, retaken = profiled(
+        lambda: model.fit(n_epochs=WINDOW_STEPS, lr=1e-2, S=S, minibatch_size=minibatch_size),
+        replays=WINDOW_STEPS)
+    check(seen == window and graphs == WINDOW_STEPS
+          and all(window[k] == v * WINDOW_STEPS for k, v in per_step.items()),
           f"{name}: over {WINDOW_STEPS} replays the counters {window} against the "
-          f"profiler's kernels {seen}")
+          f"profiler's kernels {seen} and {graphs} graph launches")
     emit(name, steps=n_epochs, seconds=dt, steps_per_s=n_epochs / dt, captured=True,
          graph_pool_bytes=graph_pool_bytes(loop),
          launches=launches, launches_per_step={k: v / n_epochs for k, v in launches.items()},
          plain_calls=plain, solve_mode=model.spec.svgp_solve_mode, loss_first=float(losses[0]),
          loss_first50=first, loss_last50=last, peak_mem_bytes=peak,
-         minibatch_size=minibatch_size, data_chunk_size=model.spec.data_chunk_size,
-         fit_calls=calls, profiler_window={"steps": WINDOW_STEPS, "launches": seen})
-    return {"launches": launches, "losses": losses, "peak_mem_bytes": peak}
+         peak_mem_above_start_bytes=peak - base, minibatch_size=minibatch_size, data_chunk_size=model.spec.data_chunk_size,
+         fit_calls=calls, profiler_window={"steps": WINDOW_STEPS, "launches": seen,
+                                           "graph_launches": graphs, "retaken_after": retaken})
+    return {"launches": launches, "losses": losses, "peak_mem_bytes": peak,
+            "peak_mem_above_start_bytes": peak - base, "steps_per_s": n_epochs / dt, "graph_pool_bytes": graph_pool_bytes(loop)}
 
 
 # Replays of each fit_* phase's profiler window.
 WINDOW_STEPS = 3
 
 
-def profiled(run, trace=None):
+def profiled(run, trace=None, replays=None):
     """``run()`` under torch.profiler with every count set to 0 just before:
     (device-side rows (name, self device us, count), the counters' launches
-    after, the launches of the port's kernels as the profiler saw them); the
-    chrome trace goes to the path ``trace`` when one is given."""
+    after, the launches of the port's kernels as the profiler saw them, the
+    cudaGraphLaunch calls it saw, and the first window's census when it was
+    taken again, else None); the chrome trace goes to the path ``trace``
+    when one is given.
+
+    A window whose kernels disagree with the counters is taken once more
+    only where the profiler is shown to have lost kernel records
+    (``lost_replay_records``): ``replays`` graph replays were asked for,
+    the profiler saw exactly that many cudaGraphLaunch calls, and what it
+    missed of each kernel is a whole number of one replay's launches (one
+    run's fit_mb100k window saw 4 of the counters' 6 Cholesky kernels and
+    all 3 graph launches). The second window must agree; any other
+    disagreement is the caller's to fail on."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    reset_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    launches, _ = read_counts()
+    first = None
+    while True:
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        launches, _ = read_counts()
+        averages = prof.key_averages()
+        # Device-side events only (kernels, copies, fills): a CPU op's row
+        # repeats the device time of the kernels it launched, and a
+        # device-side user annotation (the optimizer step's) spans kernels
+        # listed anyway.
+        rows = [(e.key, e.self_device_time_total, e.count) for e in averages
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        graphs = sum(e.count for e in averages if e.key == "cudaGraphLaunch")
+        # The port's kernels by their names in csrc/; a quad backward is a
+        # dx and a dF pass, or one tensor-core kernel launched twice.
+        count = lambda *names: sum(r[2] for r in rows if any(n in r[0] for n in names))
+        seen = {"cholesky": count("cholesky_smem_kernel", "cholesky_panel_kernel"),
+                "trisolve": count("trisolve_kernel"), "quad_fwd": count("quad_fwd_kernel"),
+                "quad_bwd": count("quad_bwd_tc_kernel", "quad_dx_kernel", "quad_df_kernel") / 2,
+                "factor": count("factor_smem_kernel", "factor_panel_kernel"),
+                "gram": count("gram_kernel")}
+        if (seen == launches or first is not None
+                or not lost_replay_records(launches, seen, graphs, replays)):
+            break
+        first = {"counters": launches, "profiler": seen, "graph_launches": graphs}
     if trace is not None:
         prof.export_chrome_trace(str(trace))
-    # Device-side events only (kernels, copies, fills): a CPU op's row
-    # repeats the device time of the kernels it launched, and a device-side
-    # user annotation (the optimizer step's) spans kernels listed anyway.
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    # The port's kernels by their names in csrc/; a quad backward is a dx
-    # and a dF pass, or one tensor-core kernel launched twice.
-    count = lambda *names: sum(r[2] for r in rows if any(n in r[0] for n in names))
-    seen = {"cholesky": count("cholesky_smem_kernel", "cholesky_panel_kernel"),
-            "trisolve": count("trisolve_kernel"), "quad_fwd": count("quad_fwd_kernel"),
-            "quad_bwd": count("quad_bwd_tc_kernel", "quad_dx_kernel", "quad_df_kernel") / 2,
-            "factor": count("factor_smem_kernel", "factor_panel_kernel"),
-            "gram": count("gram_kernel")}
-    return rows, launches, seen
+    return rows, launches, seen, graphs, first
+
+
+def lost_replay_records(launches, seen, graphs, replays) -> bool:
+    """Whether the profiler, not the path, explains a window's disagreement:
+    all ``replays`` graph launches of a captured run were seen, and each
+    kernel's shortfall is a whole number (0 included) of one replay's
+    launches, ``launches`` over ``replays``."""
+    if replays is None or graphs != replays:
+        return False
+    for k, n in launches.items():
+        per, rest = divmod(n, replays)
+        missing = n - seen[k]
+        if rest or missing < 0 or (missing % per if per else missing):
+            return False
+    return True
 
 
 def graph_pool_bytes(loop):
@@ -1503,7 +1590,8 @@ def phase_profile(name, model, out_dir: Path, mode: str = "captured", steps: int
     if mode == "captured":
         out_dir.mkdir(parents=True, exist_ok=True)
         trace = out_dir / f"{name}_trace.json"
-    rows, launches, by_name = profiled(lambda: fit(steps), trace)
+    rows, launches, by_name, graphs, retaken = profiled(
+        lambda: fit(steps), trace, replays=steps if mode == "captured" else None)
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     check(busy_us > 0, "profiler recorded no device time")
@@ -1521,6 +1609,7 @@ def phase_profile(name, model, out_dir: Path, mode: str = "captured", steps: int
          device_idle_share=1.0 - busy_us / steps / 1e6 / step_s,
          device_events_per_step=sum(r[2] for r in rows) / steps,
          share_of_busy={k.rstrip("_"): v for k, v in ours.items()},
+         profiler_graph_launches=graphs, profiler_window_retaken_after=retaken,
          top=[{"name": k[:90], "ms_per_step": us / steps / 1e3, "calls_per_step": n / steps}
               for k, us, n in rows[:top]])
 
@@ -1579,7 +1668,12 @@ def run_multistart(model, **kw):
     """``model.fit_multistart(**kw)`` with each vectorized wave's kernel
     counts (every count set to 0 just before the wave and read just after)
     and seconds, and the seconds of selection (the aligned-coordinate
-    forwards and the k-NN scores): (losses, waves, selection, seconds)."""
+    forwards and the k-NN scores): (losses, waves, selection, seconds, the
+    device bytes it kept: {"allocated_bytes", "reserved_bytes"} after it
+    returned above those before it, each after gc.collect and empty_cache).
+    The model must hold no R-wide loop once it returns."""
+    import gc
+
     import torch
 
     cls, waves, sel = type(model), [], {"forward_s": 0.0, "consistency_s": 0.0}
@@ -1607,8 +1701,15 @@ def run_multistart(model, **kw):
     model._fit_restarts_vectorized = wave
     model.forward = timed("forward", "forward_s")
     model._alignment_consistency = timed("_alignment_consistency", "consistency_s")
-    try:
+    def held():
+        gc.collect()
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return {"allocated_bytes": torch.cuda.memory_allocated(),
+                "reserved_bytes": torch.cuda.memory_reserved()}
+
+    try:
+        before = held()
         t0 = time.perf_counter()
         losses = model.fit_multistart(**kw)
         torch.cuda.synchronize()
@@ -1616,7 +1717,9 @@ def run_multistart(model, **kw):
     finally:
         for name in ("_fit_restarts_vectorized", "forward", "_alignment_consistency"):
             model.__dict__.pop(name, None)
-    return losses, waves, sel, total
+    check("_vec_loop_cache" not in model.__dict__, "fit_multistart kept its R-wide loop")
+    after = held()
+    return losses, waves, sel, total, {k: after[k] - before[k] for k in after}
 
 
 def check_waves(name, waves, per_step):
@@ -1631,13 +1734,12 @@ def check_waves(name, waves, per_step):
               f"{name}: plain versions called on the card: {w['plain_calls']}")
 
 
-def restart_loop_ms(model, steps: int = 200) -> float:
-    """Device-synchronized ms of one step of the model's cached R-wide loop
-    (replays after fit_multistart, at temperature 0 and lr 1e-3)."""
+def restart_loop_ms(loop, steps: int = 200) -> float:
+    """Device-synchronized ms of one step of an R-wide loop (replays at
+    temperature 0 and lr 1e-3)."""
     import numpy as np
     import torch
 
-    loop = model._vec_loop_cache["loop"]
     lrs = np.full(steps, 1e-3, np.float32) if loop._lrs else None
     loop.run(np.zeros(steps, np.float32), lrs)
     torch.cuda.synchronize()
@@ -1676,7 +1778,7 @@ def phase_multistart_m50(device):
         model = VariationalGPSA(dd, m_X_per_view=50, m_G=50, n_latent_gps={"expression": 5},
                                 mean_function="identity_fixed", fixed_view_idx=fixed, seed=0,
                                 device=device)
-        losses, waves, sel, total = run_multistart(model, **MS_M50)
+        losses, waves, sel, total, kept = run_multistart(model, **MS_M50)
         check(bool(np.isfinite(losses).all()), f"multistart_m50 {mode}: non-finite loss")
         check_waves(f"multistart_m50 {mode}", waves, DEFAULT_PER_STEP)
         ens = model.ensemble_G_means_["expression"]
@@ -1691,7 +1793,8 @@ def phase_multistart_m50(device):
               f"multistart_m50 {mode}: aligned error {err} (observed {observed})")
         R, T = MS_M50["n_restarts"], MS_M50["n_epochs"]
         err_winner = aligned_error(model.predict({"expression": X})[0]["expression"], vi)
-        step_ms = restart_loop_ms(model)
+        step_ms = restart_loop_ms(restart_loop(model, MS_M50["n_restarts"], scheduled=True))
+        model.__dict__.pop("_vec_loop_cache")
         single_ms = fit_step_ms(model, recipe="accurate")
         out[mode] = {
             "aligned_error_ensemble": err, "aligned_error_winner": err_winner,
@@ -1699,7 +1802,7 @@ def phase_multistart_m50(device):
             "restart_step_ms": step_ms, "restart_steps_per_s": R * 1e3 / step_ms,
             "single_step_ms": single_ms, "single_steps_per_s": 1e3 / single_ms,
             "wave_seconds": [w["seconds"] for w in waves], "selection_seconds": sel,
-            "seconds": total, "loss_last": float(losses[-1]),
+            "seconds": total, "kept_after_return_bytes": kept, "loss_last": float(losses[-1]),
             "launches_per_step": {k: v / T for k, v in waves[0]["launches"].items()}}
         if fixed is None:
             denovo = model
@@ -1775,7 +1878,8 @@ def restart_runner(model, R, mode, S=5, minibatch_size=None):
     from spatial_alignment_tpu_torch.models._trees import leaves, tree_map
 
     if mode == "captured":
-        loop = model._vec_loop_cache["loop"]
+        cache = model.__dict__.get("_vec_loop_cache")
+        loop = cache["loop"] if cache else restart_loop(model, R, minibatch_size)
         lrs = lambda n: np.full(n, 1e-3, np.float32) if loop._lrs else None
         return lambda n: loop.run(np.zeros(n, np.float32), lrs(n))
     params = tree_map(lambda v: v.requires_grad_(True), model._restart_inits(R, 0))
@@ -1810,15 +1914,17 @@ def phase_multistart_m200(name, model, per_step, single_model):
     import torch
     from spatial_alignment_tpu_torch.models._trees import leaves, tree_map
 
-    losses, waves, sel, total = run_multistart(
+    losses, waves, sel, total, kept = run_multistart(
         model, n_epochs=MS_STEPS, n_restarts=MS_R, seed0=0, lr=1e-2, S=5, select="loss",
         vectorized=True, verbose=False)
     check(bool(np.isfinite(losses).all()), f"{name}: non-finite loss")
     check(len(waves) == 1 and waves[0]["restarts"] == MS_R, f"{name}: waves {waves}")
     check_waves(name, waves, per_step)
-    loop = model._vec_loop_cache["loop"]
+    # fit_multistart dropped its loop; the same one, captured again, serves
+    # the timing and the comparisons below.
+    loop = restart_loop(model, MS_R)
     check(loop.graph is not None, f"{name}: the R-wide step was not captured")
-    step_ms = restart_loop_ms(model)
+    step_ms = restart_loop_ms(loop)
     single_ms = fit_step_ms(single_model, lr=1e-2, S=5)
 
     # Captured against eager: the same initial parameters and generator.
@@ -1859,6 +1965,7 @@ def phase_multistart_m200(name, model, per_step, single_model):
          graph_pool_bytes=graph_pool_bytes(loop), single_graph_pool_bytes=graph_pool_bytes(
              single_model._train_loop_cache["loop"]),
          winner=model.multistart_winner_, seconds=total, wave_seconds=waves[0]["seconds"],
+         kept_after_return_bytes=kept,
          captured_vs_eager_bit_equal=True, alone_steps=MS_ALONE_STEPS, restart_vs_alone=alone,
          rounding_witness=witness)
     return alone
@@ -1872,7 +1979,7 @@ def phase_multistart_mb100k(model, X, view_idx):
     import numpy as np
 
     with forced_gram():
-        losses, waves, sel, total = run_multistart(model, **MS_MB)
+        losses, waves, sel, total, kept = run_multistart(model, **MS_MB)
         G = model.predict({"expression": X})[0]["expression"]
     check(bool(np.isfinite(losses).all()), "multistart_mb100k: non-finite loss")
     check_waves("multistart_mb100k", waves, MB_GRAM_PER_STEP)
@@ -1886,6 +1993,7 @@ def phase_multistart_mb100k(model, X, view_idx):
          aligned_error_top2_ensemble=aligned_error(ens, view_idx), winner=model.multistart_winner_,
          wave_seconds=[w["seconds"] for w in waves], selection_seconds=sel,
          selection_share=(sel["forward_s"] + sel["consistency_s"]) / total, seconds=total,
+         kept_after_return_bytes=kept,
          jax_record=MS_MB_RECORD)
 
 
@@ -1927,6 +2035,325 @@ def capture_folded_inputs(model, R, S=5, minibatch_size=None):
     finally:
         ch.cholesky_kernel, gm.gram_kernel = orig_c, orig_g
     return list(chol.values()), others, list(grams.values())
+
+
+# Launches a step of the whitened m = 200 model with the opt-ins: the
+# Cholesky probe and the final Kuu slab (no inverse is wanted, so no fused
+# factor), one width-N solve a layer and its transposed solve in the
+# backward, the quad-diag forward and backward in each layer.
+WHITENED_OPTIN_PER_STEP = {"cholesky": 2, "trisolve": 4, "quad_fwd": 2, "quad_bwd": 2,
+                           "factor": 0, "gram": 0}
+# Imputation grids: 64 x 64 over the m = 200 model's aligned coordinates,
+# 250 x 200 over the 100k model's.
+IMPUTE_GRIDS = {"fit_m200_whitened": (64, 64), "fit_m200_whitened_pallas": (64, 64),
+                "fit_mb100k_gram_whitened": (250, 200)}
+
+
+def injected_noise(model, S=5, seed=11):
+    """One step's standard-normal draws for ``model``'s full batch, from a
+    generator of the smoke's own: (warp_noise, data_noise)."""
+    import torch
+
+    spec, dev = model.spec, model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    Ntot = sum(m.n_padded for m in spec.modalities)
+    wn = torch.randn((S, spec.n_views, Ntot, spec.n_spatial_dims), generator=gen, device=dev)
+    dn = {m.name: torch.randn((S, spec.n_views * m.n_padded, m.n_latent), generator=gen,
+                              device=dev) for m in spec.modalities}
+    return wn, dn
+
+
+def loss_at(spec, params, consts, batch, noise, S=5) -> float:
+    from spatial_alignment_tpu_torch.models import core
+    import torch
+
+    with torch.no_grad():
+        return float(core.negative_elbo(spec, params, consts, batch, S, warp_noise=noise[0],
+                                        data_noise=noise[1]))
+
+
+def triangular_first_loss(square, tri, seed=11):
+    """The first loss of a triangular model and of the square model built
+    from the same data and seed, at their initial parameters, from one set
+    of injected draws."""
+    noise = injected_noise(square, seed=seed)
+    a = loss_at(square.spec, square.params, square.consts, square._batch, noise)
+    b = loss_at(tri.spec, tri.params, tri.consts, tri._batch, noise)
+    return {"square": a, "triangular": b, "rel": abs(b - a) / abs(a)}
+
+
+def to_whitened(model, dtype):
+    """``model``'s square-mode parameters as whitened ones for the same q, on
+    the host in float64: w = L^-1 (delta - mu_z), A = L^-1 chol(Omega). L
+    and chol(Omega) are the model's own factors in ``dtype`` (float32: on
+    the card, with the jitter rung the float32 model takes; float64: on the
+    CPU), then solved in float64. Returns (params, consts) in ``dtype`` on
+    the device the factors were taken on."""
+    import torch
+    from spatial_alignment_tpu_torch.models._trees import tree_map
+    from spatial_alignment_tpu_torch.ops import linalg
+    from spatial_alignment_tpu_torch.ops.kernels import get_kernel
+
+    spec = model.spec
+    dev = model.device if dtype == torch.float32 else torch.device("cpu")
+    cast = lambda t: t.detach().to(dev, dtype)
+    params, consts = tree_map(cast, model.params), tree_map(cast, model.consts)
+    hp = {**consts, **params}
+    eps = spec.diagonal_offset
+    kw, kd = get_kernel(spec.kernel_warp), get_kernel(spec.kernel_data)
+    f64 = lambda t: t.detach().cpu().double()
+    solve = lambda L, b: torch.linalg.solve_triangular(L, b, upper=False)
+    with torch.no_grad():
+        Xt = hp["Xtilde"]
+        Lw = f64(torch.stack([linalg.jittered_cholesky(kw(
+            Xt[v], Xt[v], hp["warp_kernel_lengthscales"][v], hp["warp_kernel_variances"][v]),
+            eps) for v in range(spec.n_views)]))
+        Lf = f64(linalg.jittered_cholesky(kd(hp["Gtilde"], hp["Gtilde"],
+                                             hp["data_kernel_lengthscale"],
+                                             hp["data_kernel_variance"]), eps))
+        mu_z = f64(Xt @ hp["mean_slopes"] + hp["mean_intercepts"][:, None])
+        out = dict(params)
+        out["delta_G"] = solve(Lw, f64(hp["delta_G"]) - mu_z)
+        C = f64(linalg.factor_psd_cholesky(hp["Omega_sqt_G"], eps))
+        out["Omega_sqt_G"] = solve(Lw[:, None], C)
+        out["delta_F"] = {k: solve(Lf, f64(v)) for k, v in hp["delta_F"].items()}
+        out["Omega_sqt_F"] = {k: solve(Lf, f64(linalg.factor_psd_cholesky(v, eps)))
+                              for k, v in hp["Omega_sqt_F"].items()}
+        out = tree_map(lambda t: t.to(dev, dtype), out)
+    return out, consts
+
+
+def phase_variational_equivalence(tri_rows, square_fit, noise_seed=12):
+    """The parameterizations against each other at full width, from
+    injected draws. Triangular (``tri_rows``, from ``triangular_first_loss``
+    before any training): a triangular model's first loss against the square
+    model of the same seed (its stored factor is the float64 Cholesky of the
+    square mode's initial covariance, so both hold one q; rel 1e-4, where
+    the card's float32 Cholesky of the square mode's covariance parts from
+    the float64 one by rounding times its condition number).
+    Whitened: ``square_fit``'s trained square parameters converted to
+    whitened ones (``to_whitened``), the two losses in float64 on the CPU
+    (the same function: held at 1e-9) and in float32 on the card (1e-4:
+    the two parameterizations reach the same q through other float32
+    factors and solves)."""
+    import torch
+
+    for name, row in tri_rows.items():
+        check(row["rel"] <= 1e-4, f"{name}: triangular first loss rel {row['rel']}")
+    m = square_fit
+    spec_w = m.spec.replace(whitened_variational=True)
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        pw, consts = to_whitened(m, dtype)
+        dev = next(iter(consts.values())).device
+        params = {k: ({kk: vv.detach().to(dev, dtype) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.detach().to(dev, dtype))
+                  for k, v in m.params.items()}
+        batch = {mod: {k: (t.to(dev, dtype) if t.is_floating_point() else t.to(dev))
+                       for k, t in b.items()} for mod, b in m._batch.items()}
+        wn, dn = injected_noise(m, seed=noise_seed)
+        noise = (wn.to(dev, dtype), {k: v.to(dev, dtype) for k, v in dn.items()})
+        t0 = time.perf_counter()
+        a = loss_at(m.spec, params, consts, batch, noise)
+        b = loss_at(spec_w, pw, consts, batch, noise)
+        key = "float64_cpu" if dtype == torch.float64 else "float32_card"
+        rows[key] = {"square": a, "whitened": b, "rel": abs(b - a) / abs(a),
+                     "seconds": time.perf_counter() - t0}
+    check(rows["float64_cpu"]["rel"] <= 1e-9,
+          f"whitened equivalence float64: rel {rows['float64_cpu']['rel']}")
+    check(rows["float32_card"]["rel"] <= 1e-4,
+          f"whitened equivalence float32: rel {rows['float32_card']['rel']}")
+    emit("variational_equivalence", triangular_first_loss=tri_rows, whitened_from_fit_m200=rows)
+
+
+def capture_with_generator_kept(model, fn):
+    """``fn(model)`` with the model's generator state put back after, so a
+    capture leaves the model's first training step its own draws."""
+    state = model._gen.get_state()
+    try:
+        return fn(model)
+    finally:
+        model._gen.set_state(state)
+
+
+def phase_variational_kernels(device, peaks, models, impute):
+    """Every kernel at the shapes the triangular and whitened routes give
+    it, captured from one loss and gradient of each model (``models``:
+    {name: model}) before it trains: the Cholesky's Kuu-only slabs, the
+    width-N solves of the whitened opt-in model, the fused factor of the
+    triangular opt-in one; and the quad forward of ``impute`` = (name,
+    model, X): forward(G_test=) on that opt-in model at its
+    ``IMPUTE_GRIDS`` grid over X's bounding box. Each against its plain
+    version, timed beside the bound and the library call."""
+    import torch
+
+    chol, others = {}, {}
+    for name, model in models.items():
+        def one(m, mb=name.startswith("fit_mb100k")):
+            if mb:
+                with forced_gram():
+                    return minibatch_loss(m, MB_B)
+            return full_loss(m)
+
+        for a in capture_with_generator_kept(model, lambda m: capture_cholesky_inputs(
+                lambda: one(m))):
+            chol.setdefault(tuple(a.shape), a)
+        if model.spec.cholesky_impl == "pallas":
+            keep = "trisolve" if model.spec.whitened_variational else "factor"
+            for key, stride0, args in capture_with_generator_kept(model, capture_kernel_inputs):
+                if key == keep:
+                    sig = (key,) + tuple(tuple(t.shape) if torch.is_tensor(t) else t
+                                         for t in args)
+                    others.setdefault(sig, (key, stride0, args))
+    imp_name, imp_model, X_imp = impute
+    grid = impute_grid(X_imp, IMPUTE_GRIDS[imp_name])
+    run = lambda m: capture_kernel_inputs(m, run=lambda: m.forward(
+        {"expression": X_imp}, S=5, G_test={"expression": grid}))
+    imp = [(key, stride0, args) for key, stride0, args in
+           capture_with_generator_kept(imp_model, run)
+           if key == "quad_fwd" and args[0].shape[-2] == len(grid)]
+    check([(tuple(a[0].shape), tuple(a[1].shape)) for _, _, a in imp]
+          == [((1, len(grid), 200), (10, 200, 200))],
+          f"{imp_name}: imputation quad forward inputs {[[a.shape for a in i[2]] for i in imp]}")
+    others[("quad_fwd_impute",)] = imp[0]
+    new_chol = {s: a for s, a in chol.items() if s in ((2, 200, 200), (2, 100, 100))}
+    check(sorted(new_chol) == [(2, 100, 100), (2, 200, 200)],
+          f"Kuu-only Cholesky slabs {sorted(chol)}")
+    # The data layer's factor reaches the kernel expanded over the 5
+    # samples with stride 0 (one factor shared); the warp layer's is its own.
+    want = sorted([("trisolve", (5, 200, 200), (5, 200, 4050), False, True),
+                   ("trisolve", (5, 200, 200), (5, 200, 4050), True, True),
+                   ("trisolve", (1, 200, 200), (1, 200, 2025), False, False),
+                   ("trisolve", (1, 200, 200), (1, 200, 2025), True, False)])
+    got = sorted(k[:4] + (v[1],) for k, v in others.items() if k[0] == "trisolve")
+    check(got == want, f"whitened solve shapes {got}, expected {want}")
+    check([k[1] for k in others if k[0] == "factor"] == [(2, 200, 200)],
+          f"triangular fused factor shapes {[k for k in others if k[0] == 'factor']}")
+    record, _, _ = phase_kernels(device, list(new_chol.values()), peaks, extras=False)
+    rows = phase_new_kernels(device, list(others.values()), peaks, extras=False)
+    emit("kernels_variational", cholesky=record, trisolve=rows["trisolve"], factor=rows["factor"],
+         quad_fwd_impute=rows["quad_fwd"])
+    return rows
+
+
+def impute_grid(G, shape):
+    """A grid of shape[0] x shape[1] points over the bounding box of G."""
+    import numpy as np
+
+    lo, hi = G.min(0), G.max(0)
+    g0, g1 = np.meshgrid(np.linspace(lo[0], hi[0], shape[0]), np.linspace(lo[1], hi[1], shape[1]))
+    return np.stack([g0.ravel(), g1.ravel()], 1).astype(np.float32)
+
+
+def phase_impute(name, model, X, view_idx, S=5, forced=False):
+    """forward(G_test=) on a grid over the aligned coordinates' bounding box
+    (``IMPUTE_GRIDS``; ``forced``: under the forced Gram kernel, as the
+    model trained): finite (S, n, L) and (S, n, P) samples, seconds and
+    peak memory, and the launches G_test adds to the same forward without
+    it: one quad forward on the opt-in route, none elsewhere (impute_at's
+    cross-Gram and solves take no kernel opt-in). Then imputation at one
+    view's own aligned means, with the noise zeroed
+    (``core.impute_at(noise=0)``): the imputed observed means against
+    predict()'s F_mean at those points, both through the expansion form of
+    the cross-Gram (predict's S-batched, impute_at's not; rel 1e-5, or ten
+    times the data factor's condition number times float32's unit
+    roundoff where predict's solves run the CUDA kernel and impute_at's
+    the plain one)."""
+    import numpy as np
+    import torch
+    from spatial_alignment_tpu_torch.models import core
+    from spatial_alignment_tpu_torch.models.params import merge_hyperparams
+
+    mod = model.spec.modalities[0]
+    G, F_mean, _ = (d["expression"] for d in model.predict({"expression": X}))
+    grid = impute_grid(G, IMPUTE_GRIDS[name])
+    with forced_gram() if forced else contextlib.nullcontext():
+        reset_counts()
+        model.forward({"expression": X}, S=S)
+        torch.cuda.synchronize()
+        without, _ = read_counts()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = model.forward({"expression": X}, S=S, G_test={"expression": grid})
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches, plain = read_counts()
+        added = {k: n - without[k] for k, n in launches.items()}
+        want = {**dict.fromkeys(added, 0),
+                "quad_fwd": int(model.spec.quad_diag_impl == "pallas")}
+        check(added == want and not any(plain.values()),
+              f"{name}: forward(G_test=) added launches {added}, expected {want}; plain {plain}")
+        lat, obs = out[4]["expression"], out[5]["expression"]
+        check(len(out) == 6 and lat.shape == (S, len(grid), mod.n_latent)
+              and obs.shape == (S, len(grid), mod.n_outputs),
+              f"{name}: forward(G_test=) gave {len(out)} outputs, {lat.shape}, {obs.shape}")
+        check(bool(np.isfinite(lat).all() and np.isfinite(obs).all()),
+              f"{name}: non-finite imputation")
+    v = 1
+    Gv = torch.as_tensor(G[view_idx[v]], device=model.device)
+    hp = merge_hyperparams(model.params, model.consts)
+    with torch.no_grad():
+        fp = core.compute_factors(model.spec, hp)
+        aux = core.DataAux(fp.data_Kuu_chol, fp.data_Om_tril, fp.data_Kuu_inv)
+        zero = {mod.name: torch.zeros((1, len(Gv), mod.n_latent), device=model.device)}
+        _, imp = core.impute_at(model.spec, hp, aux, {mod.name: Gv}, 1, noise=zero)
+    mean = imp[mod.name][0].cpu().numpy()
+    want = F_mean[view_idx[v]]
+    rel = float(np.abs(mean - want).max() / np.abs(want).max())
+    tol = 1e-5
+    if model.spec.cholesky_impl == "pallas":
+        tol = max(tol, 10 * cond2(fp.data_Kuu_chol) * 2.0**-24)
+    check(rel <= tol, f"{name}: imputed means at view {v}'s aligned means rel {rel} vs "
+                      f"predict (tolerance {tol})")
+    emit("impute", fit=name, grid=list(IMPUTE_GRIDS[name]), n_test=len(grid), S=S, seconds=dt,
+         peak_mem_bytes=peak, latent_shape=list(lat.shape), observed_shape=list(obs.shape),
+         launches_added_by_G_test=added, imputed_vs_predict_view=v,
+         imputed_vs_predict_rel=rel, imputed_vs_predict_tolerance=tol)
+
+
+def restart_loop(model, R, minibatch_size=None, scheduled=False):
+    """The model's R-wide train loop, captured again if fit_multistart has
+    dropped it: plain Adam at lr 1e-2 and S = 5 (``scheduled``: the
+    recipe's CosineDecayAdam), from the restarts' initial parameters."""
+    from spatial_alignment_tpu_torch.models.train import CosineDecayAdam
+
+    opt = CosineDecayAdam(1e-2, 1) if scheduled else None
+    return model._restart_loop(R, 1e-2, 5, opt, minibatch_size, model._restart_inits(R, 0))
+
+
+def phase_memory_after_multistart(models, predict):
+    """What fit_multistart's R-wide loops would keep were they not dropped
+    when it returns (each captured again here, ``models``: {name: (model,
+    R, minibatch_size, scheduled)}): their pools, predict_mb100k's peak
+    reserved memory with them held and after they are dropped."""
+    import gc
+
+    import torch
+
+    pools = {}
+    for name, (model, R, mb, scheduled) in models.items():
+        ctx = forced_gram() if mb else contextlib.nullcontext()
+        with ctx:
+            pools[name] = graph_pool_bytes(restart_loop(model, R, mb, scheduled))
+    out = {}
+    for state in ("held", "dropped"):
+        if state == "dropped":
+            for model, *_ in models.values():
+                model.__dict__.pop("_vec_loop_cache", None)
+            gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        predict()
+        torch.cuda.synchronize()
+        out[state] = {"reserved_bytes": reserved,
+                      "predict_peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+    emit("memory_after_multistart", restart_graph_pool_bytes=pools,
+         restart_graph_pools_total_bytes=sum(pools.values()), **out)
 
 
 def main() -> int:
@@ -2002,6 +2429,9 @@ def main() -> int:
          kmeans_seconds=sum(k["seconds"] for k in kmeans_s), n_spots=sum(nslm),
          solve_mode=model_mb.spec.svgp_solve_mode, spec_data_chunk_size=[
              m.spec.data_chunk_size for m in (model_mb, model_mb_g, model_mb_gc)])
+    # Its whitened twin, from the constructor: the same data, seed and
+    # k-means centres, the whitened init.
+    model_mb_w = VariationalGPSA(ddm, **MB100K, whitened_variational=True, device=device)
 
     dd200, X200, vi200 = two_view_data(45, 10)
     kw200 = dict(m_X_per_view=200, m_G=200, n_latent_gps={"expression": 10}, fixed_view_idx=0,
@@ -2016,6 +2446,20 @@ def main() -> int:
     # designs (m > 240).
     kw384 = {**kw200, "m_X_per_view": 384, "m_G": 384}
     model384 = VariationalGPSA(dd200, **kw384)
+    # The triangular and whitened twins of the m = 200 model (the
+    # constructor's, from the same data and seed), and the m = 50 pair; the
+    # triangular first losses are taken here, before anything trains.
+    model_tri = VariationalGPSA(dd200, **kw200, triangular_variational=True)
+    model_tri_p = VariationalGPSA(dd200, **kw200, **OPT_INS, triangular_variational=True)
+    model_w = VariationalGPSA(dd200, **kw200, whitened_variational=True)
+    model_w_p = VariationalGPSA(dd200, **kw200, **OPT_INS, whitened_variational=True)
+    dd50, X50, vi50 = two_view_data(10, None)
+    kw50 = dict(m_X_per_view=50, m_G=50, n_latent_gps={"expression": None}, fixed_view_idx=0,
+                device=device)
+    model50 = VariationalGPSA(dd50, **kw50)
+    model50_tri = VariationalGPSA(dd50, **kw50, triangular_variational=True)
+    tri_rows = {"m200": triangular_first_loss(model, model_tri),
+                "m50": triangular_first_loss(model50, model50_tri)}
     real_inputs = capture_cholesky_inputs(lambda: full_loss(model))
     real_inputs += capture_cholesky_inputs(lambda: minibatch_loss(model_mb, MB_B))
     real_inputs += capture_cholesky_inputs(lambda: full_loss(model384))
@@ -2032,9 +2476,6 @@ def main() -> int:
     # the model's generator as the default model's capture does, so the
     # first training step of each pair sees the same noise.
     model_p = VariationalGPSA(dd200, **kw200, **OPT_INS)
-    dd50, _, _ = two_view_data(10, None)
-    kw50 = dict(m_X_per_view=50, m_G=50, n_latent_gps={"expression": None}, fixed_view_idx=0,
-                device=device)
     model50_p = VariationalGPSA(dd50, **kw50, **OPT_INS)
     model384_p = VariationalGPSA(dd200, **kw384, **OPT_INS)
     captured384 = capture_kernel_inputs(model384_p)
@@ -2065,12 +2506,22 @@ def main() -> int:
     check(shapes == want, f"gram shapes on the 100k path {shapes}, expected {want}")
     gram_record = phase_gram(device, gram_captured, peaks)
     emit("kernels", cholesky=chol_record, **new_record, **gram_record)
+    phase_variational_kernels(device, peaks, {
+        "fit_m200_triangular": model_tri, "fit_m200_triangular_pallas": model_tri_p,
+        "fit_m200_whitened_pallas": model_w_p, "fit_mb100k_gram_whitened": model_mb_w},
+        ("fit_m200_whitened_pallas", model_w_p, X200))
+    del model_tri_p
 
     G_pre, _, _ = model.predict({"expression": X200})
     fit200 = phase_fit("fit_m200", model, 200, 5, "mixed", DEFAULT_PER_STEP)
-    model50 = VariationalGPSA(dd50, **kw50)
-    phase_fit("fit_m50", model50, 300, 5, "kl_inverse", DEFAULT_PER_STEP)
+    fit200["aligned_error"] = aligned_error(model.predict({"expression": X200})[0]["expression"],
+                                            vi200)
+    fit50 = phase_fit("fit_m50", model50, 300, 5, "kl_inverse", DEFAULT_PER_STEP)
+    fit50["aligned_error"] = aligned_error(model50.predict({"expression": X50})[0]["expression"],
+                                           vi50)
     fit200_p = phase_fit("fit_m200_pallas", model_p, 200, 5, "mixed", OPTIN_PER_STEP)
+    fit200_p["aligned_error"] = aligned_error(
+        model_p.predict({"expression": X200})[0]["expression"], vi200)
     # The same function from the same parameters and noise: the first
     # losses agree to float32 summation order.
     first_rel = abs(fit200_p["losses"][0] - fit200["losses"][0]) / abs(fit200["losses"][0])
@@ -2119,14 +2570,54 @@ def main() -> int:
          aligned_error_fit=aligned_error(G_post["expression"], vi200),
          aligned_error_fit_pallas=aligned_error(G_post_p["expression"], vi200))
 
+    # The triangular and whitened routes: bench.py's fourth key (m = 50,
+    # triangular, kl_inverse) and the m = 200 model in both modes, the
+    # whitened one also with the opt-ins (width-N solves). Each route's
+    # aligned error is read just after its fit. At m = 50 the first 300
+    # steps leave it above the data's in the square fit too (fit50 above),
+    # so that route's alignment is held after 700 steps more.
+    variational = {}
+    for name_, mdl, steps, mode, per_step, square, X_, vi_ in (
+            ("fit_m50_triangular", model50_tri, 300, "kl_inverse", DEFAULT_PER_STEP, fit50,
+             X50, vi50),
+            ("fit_m200_triangular", model_tri, 200, "mixed", DEFAULT_PER_STEP, fit200, X200,
+             vi200),
+            ("fit_m200_whitened", model_w, 200, "mixed", DEFAULT_PER_STEP, fit200, X200, vi200),
+            ("fit_m200_whitened_pallas", model_w_p, 200, "mixed", WHITENED_OPTIN_PER_STEP,
+             fit200_p, X200, vi200)):
+        fit = phase_fit(name_, mdl, steps, 5, mode, per_step)
+        fit["aligned_error"] = aligned_error(mdl.predict({"expression": X_})[0]["expression"],
+                                             vi_)
+        variational[name_] = (fit, square, mdl, X_, vi_)
+    fit = variational["fit_m50_triangular"][0]
+    model50_tri.fit(n_epochs=700, lr=1e-2, S=5)
+    fit["aligned_error_after_1000_steps"] = aligned_error(
+        model50_tri.predict({"expression": X50})[0]["expression"], vi50)
+    fits_w = [variational[k][0] for k in ("fit_m200_whitened_pallas", "fit_m200_whitened")]
+    rel_w = abs(fits_w[0]["losses"][0] - fits_w[1]["losses"][0]) / abs(fits_w[1]["losses"][0])
+    check(rel_w <= 1e-3, f"fit_m200_whitened_pallas: first loss rel {rel_w} vs fit_m200_whitened")
+    emit("fit_m200_whitened_pallas_vs_fit_m200_whitened", first_loss_rel=rel_w)
+    phase_variational_equivalence(tri_rows, model)
+    phase_impute("fit_m200_whitened", model_w, X200, vi200)
+    phase_impute("fit_m200_whitened_pallas", model_w_p, X200, vi200)
+    for name_, (_, _, mdl, _, _) in variational.items():
+        phase_graph_vs_eager(name_, mdl)
+
     # The 100k-spot minibatch fits, default route and forced Gram kernel.
     fit_mb = phase_fit("fit_mb100k", model_mb, MB_STEPS, 5, "mixed", DEFAULT_PER_STEP, MB_B,
                        MB_CALLS)
     with forced_gram():
         fit_mb_g = phase_fit("fit_mb100k_gram", model_mb_g, MB_STEPS, 5, "mixed",
                              MB_GRAM_PER_STEP, MB_B, MB_CALLS)
+        fit_mb_g["aligned_error"] = aligned_error(
+            model_mb_g.predict({"expression": Xm})[0]["expression"], vim)
         fit_mb_gc = phase_fit("fit_mb100k_gram_chunked", model_mb_gc, 100, 5, "mixed",
                               MB_GRAM_CHUNKED_PER_STEP, MB_B)
+        fit_mb_w = phase_fit("fit_mb100k_gram_whitened", model_mb_w, MB_STEPS, 5, "mixed",
+                             MB_GRAM_PER_STEP, MB_B, MB_CALLS)
+        fit_mb_w["aligned_error"] = aligned_error(
+            model_mb_w.predict({"expression": Xm})[0]["expression"], vim)
+    variational["fit_mb100k_gram_whitened"] = (fit_mb_w, fit_mb_g, model_mb_w, Xm, vim)
     # The same indices and noise on each pair: the forced Gram against the
     # expansion form through a near-singular m = 100 factor (1e-3); chunked
     # against whole, the same numbers in another summation order (1e-5).
@@ -2144,6 +2635,7 @@ def main() -> int:
     with forced_gram():
         phase_graph_vs_eager("fit_mb100k_gram", model_mb_g, minibatch_size=MB_B)
         phase_graph_vs_eager("fit_mb100k_gram_chunked", model_mb_gc, minibatch_size=MB_B)
+        phase_graph_vs_eager("fit_mb100k_gram_whitened", model_mb_w, minibatch_size=MB_B)
 
     with forced_gram():
         torch.cuda.synchronize()
@@ -2168,6 +2660,29 @@ def main() -> int:
          aligned_error_fit_default_route=aligned_error(G_def, vim),
          mse_F_mean=float(np.mean((F_mb - Ym) ** 2)))
 
+    phase_impute("fit_mb100k_gram_whitened", model_mb_w, Xm, vim, forced=True)
+    # Each triangular and whitened route beside its square-mode twin of this
+    # run: steps/s, peak memory above the fit's start, the graph's pool; the
+    # aligned error just after each fit (the route's held below the data's;
+    # at m = 50 after 1,000 steps).
+    rows = {}
+    for name_, (fit, square, mdl, X_, vi_) in variational.items():
+        err_data = aligned_error(X_, vi_)
+        held = fit.get("aligned_error_after_1000_steps", fit["aligned_error"])
+        check(bool(np.isfinite(held)) and held < err_data,
+              f"{name_}: aligned error {err_data} -> {held}")
+        rows[name_] = {"steps_per_s": fit["steps_per_s"], "square_steps_per_s": square["steps_per_s"],
+                       "peak_mem_above_start_bytes": fit["peak_mem_above_start_bytes"],
+                       "square_peak_mem_above_start_bytes":
+                           square["peak_mem_above_start_bytes"],
+                       "graph_pool_bytes": fit["graph_pool_bytes"],
+                       "square_graph_pool_bytes": square["graph_pool_bytes"],
+                       "aligned_error_data": err_data,
+                       **{k: fit[k] for k in ("aligned_error", "aligned_error_after_1000_steps")
+                          if k in fit},
+                       "square_aligned_error": square["aligned_error"]}
+    emit("variational_routes", routes=rows)
+
     def predict_mb100k():
         with forced_gram():
             return model_mb_g.predict({"expression": Xm})
@@ -2176,7 +2691,8 @@ def main() -> int:
         {"fit_m200": model, "fit_m50": model50, "fit_m200_pallas": model_p,
          "fit_m50_pallas": model50_p, "fit_m384": model384, "fit_m384_pallas": model384_p,
          "fit_mb100k": model_mb, "fit_mb100k_gram": model_mb_g,
-         "fit_mb100k_gram_chunked": model_mb_gc},
+         "fit_mb100k_gram_chunked": model_mb_gc,
+         **{name_: v[2] for name_, v in variational.items()}},
         predict_mb100k, (model_mb, 1e-2, 5, None, MB_B))
     phase_resume(model)
 
@@ -2207,6 +2723,12 @@ def main() -> int:
     emit("kernels_folded", cholesky=folded_chol,
          **phase_new_kernels(device, list(new.values()), peaks, extras=False),
          **phase_gram(device, list(grams.values()), peaks))
+    phase_memory_after_multistart(
+        {"multistart_m50": (model_ms50, MS_M50["n_restarts"], None, True),
+         "multistart_m200": (model_ms, MS_R, None, False),
+         "multistart_m200_pallas": (model_ms_p, MS_R, None, False),
+         "multistart_mb100k": (model_mb_g, MS_MB["adaptive_waves"], MB_B, True)},
+        predict_mb100k)
 
     if args.profile is not None:
         for mode in ("captured", "eager"):
@@ -2216,11 +2738,16 @@ def main() -> int:
             phase_profile("fit_m50_pallas", model50_p, args.profile, mode)
             phase_profile("fit_m384", model384, args.profile, mode)
             phase_profile("fit_m384_pallas", model384_p, args.profile, mode)
+            for name_, (_, _, mdl, _, _) in variational.items():
+                if mdl is not model_mb_w:
+                    phase_profile(name_, mdl, args.profile, mode)
             phase_profile("fit_mb100k", model_mb, args.profile, mode, minibatch_size=MB_B)
             with forced_gram():
                 phase_profile("fit_mb100k_gram", model_mb_g, args.profile, mode,
                               minibatch_size=MB_B)
                 phase_profile("fit_mb100k_gram_chunked", model_mb_gc, args.profile, mode,
+                              minibatch_size=MB_B)
+                phase_profile("fit_mb100k_gram_whitened", model_mb_w, args.profile, mode,
                               minibatch_size=MB_B)
             for name_, mdl, R, mb in (("multistart_m50", model_ms50, MS_M50["n_restarts"], None),
                                       ("multistart_m200", model_ms, MS_R, None),

@@ -1,9 +1,11 @@
 """GPSA core in PyTorch: factor pass, warp layer, data layer, ELBO.
 
-Counterpart of ``spatial_alignment_tpu/models/core.py`` on the default
-(square-parameterization, merged-factor) path, with the data layer's
-point-axis chunking (``spec.data_chunk_size``) and minibatch SVI
-(``minibatch_spec``, ``subsample_batch``, ``negative_elbo_minibatch``).
+Counterpart of ``spatial_alignment_tpu/models/core.py`` on the
+merged-factor path, in the square, triangular and whitened variational
+parameterizations, with the data layer's point-axis chunking
+(``spec.data_chunk_size``), minibatch SVI (``minibatch_spec``,
+``subsample_batch``, ``negative_elbo_minibatch``) and imputation at chosen
+aligned coordinates (``impute_at``, ``forward(G_test=)``).
 The JAX package ``vmap``s its per-view function; here the view axis is an
 explicit leading batch dim. Fixed (template) views are left out of the
 factor pass and the KL by static indexing, and their slots in the per-view
@@ -17,11 +19,11 @@ Kernel opt-ins: ``spec.cholesky_impl``, ``spec.quad_diag_impl`` and
 cross-Grams of the warp and data layers go through :func:`..ops.gram.gram`,
 which takes the Gram kernel under ``set_gram_force(True)``.
 
-Monte-Carlo noise: ``warp_layer``, ``data_layer``, ``forward``,
-``negative_elbo`` and ``negative_elbo_minibatch`` take the standard-normal
-draws (and the last the subsample's indices) as optional tensors (the tests
-pass the JAX package's draws) and otherwise draw them from the given
-``torch.Generator``. Everything is float32.
+Monte-Carlo noise: ``warp_layer``, ``data_layer``, ``impute_at``,
+``forward``, ``negative_elbo`` and ``negative_elbo_minibatch`` take the
+standard-normal draws (and the last the subsample's indices) as optional
+tensors (the tests pass the JAX package's draws) and otherwise draw them
+from the given ``torch.Generator``. Everything is float32.
 """
 
 from __future__ import annotations
@@ -38,10 +40,15 @@ from ..ops.gram import gram
 from ..ops.kernels import get_kernel
 from ..ops.linalg import (
     cholesky_solve,
+    factor_psd_cholesky,
+    jittered_cholesky,
+    jittered_cholesky_inverse,
     joint_factor_cholesky,
     joint_factor_cholesky_inverse,
     kl_mvn_chol,
+    kl_whitened,
     tri_inverse,
+    tri_solve,
 )
 from .spec import ModelSpec, check_supported
 
@@ -76,6 +83,8 @@ class ForwardResult(NamedTuple):
     F_observed_samples: Dict[str, torch.Tensor]  # {mod: (S, V, Np, P)}
     warp_aux: WarpAux
     data_aux: DataAux
+    F_latent_samples_test: Optional[Dict[str, torch.Tensor]] = None  # {mod: (S, n_test, L)}
+    F_observed_samples_test: Optional[Dict[str, torch.Tensor]] = None  # {mod: (S, n_test, P)}
 
 
 # ---------------------------------------------------------------------------
@@ -108,18 +117,34 @@ def svgp_mean_var(
     Kuu_inv: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
     quad_impl: Optional[str] = None,
+    whitened: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SVGP marginal posterior at the Kuf columns (non-whitened).
+    """SVGP marginal posterior at the Kuf columns.
 
     Returns mu_tilde (..., N, C) and Sigma_tilde (..., B, N). ``solve_mode``
     as in ``ModelSpec.svgp_solve_mode``; ``Kuu_inv`` is a precomputed
     chol(Kuu)^-1 for the modes that use it. ``impl`` routes the triangular
     solves and ``quad_impl`` the quadratic forms (``ModelSpec.cholesky_impl``
     and ``quad_diag_impl``).
+
+    ``whitened``: (delta, Omega_tril) describe the whitened state
+    w = L^-1 (u - mu_z), so mu = mu_x + B^T delta and the variance's
+    quadratic form runs on B^T and Omega_tril, for B = L^-1 Kuf: one
+    width-N triangular solve (``Linv @ Kuf`` under "inverse"), whose column
+    norms are also diag(Kfu Kuu^-1 Kuf); ``mu_z`` is unused.
     """
-    if solve_mode in ("inverse", "mixed"):
+    if solve_mode == "inverse" or (solve_mode == "mixed" and not whitened):
         Linv = Kuu_inv if Kuu_inv is not None else tri_inverse(Kuu_chol, impl=impl)
-    if solve_mode == "mixed":
+    if whitened:
+        if solve_mode == "inverse":
+            B_w = Linv @ Kuf  # (..., m, N)
+        else:
+            B_w = tri_solve(Kuu_chol, Kuf, impl=impl)  # the only solve
+        alphaT = B_w.transpose(-1, -2)  # (..., N, m)
+        aKa = torch.square(alphaT).sum(dim=-1)
+        mu_tilde = mu_x + alphaT @ delta
+        aOa = _quad_diag(alphaT, Omega_tril, quad_impl)
+    elif solve_mode == "mixed":
         half = Linv @ Kuf  # (..., m, N) = L^-1 Kuf
         aKa = torch.square(half).sum(dim=-2)  # diag(Kfu Kuu^-1 Kuf)
         # Mean through the narrow (width-C) backward-stable solve.
@@ -204,7 +229,33 @@ def _split_sizes(sizes, slab):
 
 
 def _wants_kuu_inverse(spec: ModelSpec) -> bool:
+    """Whether this spec's solve mode consumes an explicit chol(Kuu)^-1:
+    the whitened KL has no prior solve, and under "kl_inverse" and "mixed"
+    the whitened predictive takes triangular solves, so whitened mode wants
+    one only under "inverse"."""
+    if spec.whitened_variational:
+        return spec.svgp_solve_mode == "inverse"
     return spec.svgp_solve_mode in ("inverse", "kl_inverse", "mixed")
+
+
+def _predictive_wants_inverse(spec: ModelSpec) -> bool:
+    """Whether the SVGP predictive itself applies chol(Kuu)^-1 (see
+    :func:`svgp_mean_var`)."""
+    mode = spec.svgp_solve_mode
+    return mode == "inverse" or (mode == "mixed" and not spec.whitened_variational)
+
+
+def _tril_mode(spec: ModelSpec) -> bool:
+    return spec.triangular_variational or spec.whitened_variational
+
+
+def omega_tril(spec: ModelSpec, Om_sqt: torch.Tensor, eps: float) -> torch.Tensor:
+    """Cholesky factor of the variational covariance from its stored factor:
+    chol(Om_sqt Om_sqt^T + eps I) in square mode, the stored factor's lower
+    triangle in triangular and whitened modes (no factorization)."""
+    if _tril_mode(spec):
+        return torch.tril(Om_sqt)
+    return factor_psd_cholesky(Om_sqt, eps)
 
 
 def _kuu_inverses(spec: ModelSpec, L_w, L_d, Va: int, m_X: int, m_G: int):
@@ -223,8 +274,12 @@ def compute_factors(spec: ModelSpec, hp: dict) -> FactorPass:
     """One batched factorization pass over all of the step's m x m matrices.
 
     The active views' warp Grams and the data Gram share one jitter probe;
-    they and every variational-covariance product share one final
-    factorization (two groups when m_X != m_G).
+    in square mode they and every variational-covariance product share one
+    final factorization (two groups when m_X != m_G). In triangular and
+    whitened modes the variational factors are stored as their Cholesky
+    factors, so only the Kuu Grams are factored (and inverted, where the
+    solve mode wants it, in the same fused call under
+    ``fused_factor_inverse="fused"``).
     """
     check_supported(spec)
     eps = spec.diagonal_offset
@@ -238,6 +293,24 @@ def compute_factors(spec: ModelSpec, hp: dict) -> FactorPass:
     om_d_list = [hp["Omega_sqt_F"][mod.name] for mod in spec.modalities]
     om_d_sizes = [s.shape[0] for s in om_d_list]
     mod_names = [mod.name for mod in spec.modalities]
+
+    if _tril_mode(spec):
+        Om_w_tril = omega_tril(spec, Om_w_sqt, eps)
+        Om_d_tril = {n: omega_tril(spec, s, eps) for n, s in zip(mod_names, om_d_list)}
+        if m_X == m_G and Va > 0:
+            slab = torch.cat([Kuu_w, Kuu_d[None]], dim=0)
+            if _wants_kuu_inverse(spec):
+                L, inv = jittered_cholesky_inverse(
+                    slab, eps, impl=spec.cholesky_impl, fused=spec.fused_factor_inverse
+                )
+                return FactorPass(L[:Va], Om_w_tril, L[Va], Om_d_tril, inv[:Va], inv[Va])
+            L = jittered_cholesky(slab, eps)
+            L_w, L_d = L[:Va], L[Va]
+        else:
+            L_w = jittered_cholesky(Kuu_w, eps) if Va else Kuu_w
+            L_d = jittered_cholesky(Kuu_d, eps)
+        inv_w, inv_d = _kuu_inverses(spec, L_w, L_d, Va, m_X, m_G)
+        return FactorPass(L_w, Om_w_tril, L_d, Om_d_tril, inv_w, inv_d)
 
     Om_w_flat = Om_w_sqt.reshape(Va * D, m_X, m_X)
     Om_d_flat = torch.cat(om_d_list, dim=0)
@@ -325,7 +398,7 @@ def warp_layer(
     V, Ntot, D = X_all.shape
     dt, dev = X_all.dtype, X_all.device
     L_a, Om_a, Linv_a = factors[0], factors[1], factors[2] if len(factors) > 2 else None
-    if spec.svgp_solve_mode in ("inverse", "mixed") and Linv_a is None and Va:
+    if _predictive_wants_inverse(spec) and Linv_a is None and Va:
         Linv_a = tri_inverse(L_a, impl=spec.cholesky_impl)
 
     m = hp["Xtilde"].shape[1]
@@ -343,6 +416,7 @@ def warp_layer(
             kff, Kuf, L_a, mu_x, mu_z_a, tk(hp["delta_G"]), Om_a, eps,
             solve_mode=spec.svgp_solve_mode, Kuu_inv=Linv_a,
             impl=spec.cholesky_impl, quad_impl=spec.quad_diag_impl,
+            whitened=spec.whitened_variational,
         )
     if Va == V:
         mu_tilde, sigma, mu_z = mu_a, sig_a, mu_z_a
@@ -401,7 +475,7 @@ def _data_factors(spec: ModelSpec, hp: dict, factors):
         factors = (fp.data_Kuu_chol, fp.data_Om_tril, fp.data_Kuu_inv)
     L_F, Om_by_mod = factors[0], factors[1]
     Linv_F = factors[2] if len(factors) > 2 else None
-    if spec.svgp_solve_mode in ("inverse", "mixed") and Linv_F is None:
+    if _predictive_wants_inverse(spec) and Linv_F is None:
         Linv_F = tri_inverse(L_F, impl=spec.cholesky_impl)
     return L_F, Om_by_mod, Linv_F
 
@@ -428,6 +502,7 @@ def _data_moments(spec, hp, Kuf, L_F, Linv_F, delta, Om_tril):
         kff, Kuf, L_F, 0.0, 0.0, delta, Om_tril, spec.diagonal_offset,
         solve_mode=spec.svgp_solve_mode, Kuu_inv=Linv_F,
         impl=spec.cholesky_impl, quad_impl=spec.quad_diag_impl,
+        whitened=spec.whitened_variational,
     )
     return mu_t, torch.clamp_min(sig.transpose(-1, -2), _VAR_FLOOR)
 
@@ -539,6 +614,50 @@ def data_layer_moments(
     return mu_obs, var_obs, DataAux(L_F, Om_tril_F, Linv_F)
 
 
+def impute_at(
+    spec: ModelSpec,
+    hp: dict,
+    data_aux: DataAux,
+    G_test: Dict[str, torch.Tensor],  # {mod: (n_test, D)} or (1, n_test, D)
+    S: int,
+    *,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Dict[str, torch.Tensor]] = None,  # {mod: (S, n_test, L)}
+):
+    """S samples of the outputs at caller-chosen aligned coordinates, from
+    the data GP's factors in ``data_aux`` (JAX ``core.impute_at``): the
+    rebuild of every view on one common grid, such as a dense 3-D grid.
+    Accepts the reference's (1, n_test, D) layout. As in the JAX package the
+    cross-Gram is the plain kernel function and the solves take no kernel
+    opt-in; the quadratic form follows ``quad_diag_impl``.
+
+    Returns ({mod: F_latent (S, n_test, L)}, {mod: F_observed (S, n_test, P)}).
+    """
+    kern = get_kernel(spec.kernel_data)
+    ls, var = hp["data_kernel_lengthscale"], hp["data_kernel_variance"]
+    F_latent, F_obs = {}, {}
+    for mod in spec.modalities:
+        Gt = G_test[mod.name]
+        if Gt.dim() == 3:
+            Gt = Gt[0]
+        Kuf = kern(hp["Gtilde"], Gt, ls, var)  # (m_G, n_test)
+        kff = torch.exp(var) * torch.ones(Gt.shape[0], dtype=Gt.dtype, device=Gt.device)
+        mu_t, sig = svgp_mean_var(
+            kff, Kuf, data_aux.Kuu_chol, 0.0, 0.0, hp["delta_F"][mod.name],
+            data_aux.Omega_tril[mod.name], spec.diagonal_offset,
+            solve_mode=spec.svgp_solve_mode, Kuu_inv=data_aux.Kuu_inv,
+            quad_impl=spec.quad_diag_impl, whitened=spec.whitened_variational,
+        )
+        eps_t = noise[mod.name] if noise is not None else torch.randn(
+            (S,) + tuple(mu_t.shape), generator=generator, dtype=mu_t.dtype, device=mu_t.device
+        )
+        scale = torch.sqrt(torch.clamp_min(sig.transpose(-1, -2), _VAR_FLOOR))
+        lat = mu_t[None] + scale[None] * eps_t
+        F_latent[mod.name] = lat
+        F_obs[mod.name] = lat @ hp["W"][mod.name] if mod.use_lmc else lat
+    return F_latent, F_obs
+
+
 # ---------------------------------------------------------------------------
 # Forward + ELBO
 # ---------------------------------------------------------------------------
@@ -554,8 +673,12 @@ def forward(
     generator: Optional[torch.Generator] = None,
     warp_noise: Optional[torch.Tensor] = None,
     data_noise: Optional[Dict[str, torch.Tensor]] = None,
+    G_test: Optional[Dict[str, torch.Tensor]] = None,
+    test_noise: Optional[Dict[str, torch.Tensor]] = None,
 ) -> ForwardResult:
-    """Full two-layer forward pass with one shared factor pass."""
+    """Full two-layer forward pass with one shared factor pass; with
+    ``G_test`` also :func:`impute_at` there (its noise drawn after the data
+    layer's, or ``test_noise``)."""
     X_all, _ = _concat_modalities(spec, batch)
     fp = compute_factors(spec, hp)
     G_mean_all, G_sample_all, warp_aux = warp_layer(
@@ -570,7 +693,14 @@ def forward(
         factors=(fp.data_Kuu_chol, fp.data_Om_tril, fp.data_Kuu_inv),
         generator=generator,
     )
-    return ForwardResult(G_means, G_samples, F_latent, F_obs, warp_aux, data_aux)
+    F_latent_t = F_obs_t = None
+    if G_test is not None:
+        F_latent_t, F_obs_t = impute_at(
+            spec, hp, data_aux, G_test, S, generator=generator, noise=test_noise
+        )
+    return ForwardResult(
+        G_means, G_samples, F_latent, F_obs, warp_aux, data_aux, F_latent_t, F_obs_t
+    )
 
 
 def gaussian_loglik_sum(y, f, scale, mask) -> torch.Tensor:
@@ -582,12 +712,24 @@ def gaussian_loglik_sum(y, f, scale, mask) -> torch.Tensor:
 def kl_divergence(spec: ModelSpec, hp: dict, warp_aux: WarpAux, data_aux: DataAux) -> torch.Tensor:
     """Total KL over the warp and data variational posteriors.
 
-    One ``kl_mvn_chol`` call per matrix size; fixed views have no lanes."""
+    One ``kl_mvn_chol`` call per matrix size; fixed views have no lanes.
+    Whitened mode: KL(q(w) || N(0, I)) per channel (``kl_whitened``), with
+    no Kuu term, the same value as the square mode's for the same q."""
     mu_q = hp["delta_G"].transpose(-1, -2)  # (V, D, m)
     V, D, m_X = mu_q.shape
-    mu_p_w = warp_aux.mu_z.transpose(-1, -2)  # (V, D, m)
     active = _active_views(spec)
     Va = len(active)
+    if spec.whitened_variational:
+        KL = torch.zeros((), dtype=mu_q.dtype, device=mu_q.device)
+        if Va:
+            tk = lambda a: _take_active(spec, a, active)
+            KL = KL + kl_whitened(tk(mu_q), tk(warp_aux.Omega_tril)).sum()
+        for mod in spec.modalities:
+            KL = KL + kl_whitened(
+                hp["delta_F"][mod.name].transpose(-1, -2), data_aux.Omega_tril[mod.name]
+            ).sum()
+        return KL
+    mu_p_w = warp_aux.mu_z.transpose(-1, -2)  # (V, D, m)
     use_inv = (
         _wants_kuu_inverse(spec)
         and data_aux.Kuu_inv is not None

@@ -21,10 +21,12 @@ indices of all R restarts come from the model's ``torch.Generator``,
 reseeded with the wave's first seed, in one draw a step
 (:func:`.core.draw_restart_noise`), not from ``jax.random.split`` keys, so
 the sample streams differ; and ``vectorized="auto"`` also needs an
-optimizer factory that builds one of :data:`.train.ZERO_STATE_OPTIMIZERS`,
+optimizer factory that builds one of :data:`.train.RESETTABLE_OPTIMIZERS`,
 each of which updates every element from its own gradient and state, so
 one optimizer over R-stacked parameters is R independent ones. Restarts are
-not spread over several devices.
+not spread over several devices. The R-wide loop is kept across the waves
+of one call and dropped when ``fit_multistart`` returns: its graph's pool
+is about R times one fit's, and a capture costs a fraction of a second.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from . import core
 from ._trees import copy_into, leaves, named_leaves, tree_equal, tree_map
 from .params import init_params, merge_hyperparams
 from .spec import _as_numpy, view_slices
-from .train import DEFAULT_LR, TrainLoop, check_zero_state, resolve_recipe, same_factory
+from .train import DEFAULT_LR, TrainLoop, check_resettable, resolve_recipe, same_factory
 
 # fit() options the vectorized path runs (everything else trains sequentially).
 _VEC_KEYS = {"lr", "S", "optimizer", "warp_temperature_schedule", "minibatch_size"}
@@ -272,13 +274,13 @@ class MultistartMixin:
     # ------------------------------------------------------------------
     def _elementwise_factory(self, optimizer) -> bool:
         """Whether ``optimizer`` (a factory, None for the default Adam)
-        builds one of :data:`.train.ZERO_STATE_OPTIMIZERS`, which update
+        builds one of :data:`.train.RESETTABLE_OPTIMIZERS`, which update
         each element from its own gradient and state: the R-wide step needs
         that to train R independent restarts."""
         if optimizer is None:
             return True
         try:
-            check_zero_state(optimizer([torch.zeros(1, device=self.device, requires_grad=True)]))
+            check_resettable(optimizer([torch.zeros(1, device=self.device, requires_grad=True)]))
         except ValueError:
             return False
         return True
@@ -473,7 +475,7 @@ class MultistartMixin:
         ``S``, ``optimizer``, ``warp_temperature_schedule`` and
         ``minibatch_size``, the selection is consistency or loss, and the
         optimizer factory builds an elementwise optimizer (one of
-        ``train.ZERO_STATE_OPTIMIZERS``); ``False`` runs sequential
+        ``train.RESETTABLE_OPTIMIZERS``); ``False`` runs sequential
         ``fit()`` calls after ``reinitialize``; ``True`` raises where the
         vectorized path cannot run.
 
@@ -485,7 +487,9 @@ class MultistartMixin:
         ``wave_size`` (vectorized path, non-adaptive): train in fixed waves
         of this width, all of which run; a final partial wave trains
         surplus restarts and discards them, so one captured width serves
-        every wave.
+        every wave. The R-wide loop serves the waves of this call and is
+        dropped when it returns: its graph's pool is about R times one
+        fit's, which the model would otherwise hold beside fit()'s own.
 
         ``multistart_winner_`` records the winning restart, its init family
         and its score. The optimizer and generator state of the last fit
@@ -552,7 +556,7 @@ class MultistartMixin:
             raise RuntimeError(
                 "vectorized=True not supported here ("
                 "checkpoint-loaded model, predictive selection, an optimizer "
-                "that is not elementwise, or "
+                "that is not elementwise or cannot be reset, or "
                 f"unsupported fit options {set(fit_kwargs) - _VEC_KEYS})"
             )
         if wave_size is not None:
@@ -568,7 +572,7 @@ class MultistartMixin:
                 raise RuntimeError(
                     "wave_size chunks the vectorized restart path, which "
                     "is unavailable here (checkpoint-loaded model, an optimizer "
-                    "that is not elementwise or unsupported fit options)"
+                    "that is not elementwise or cannot be reset, or unsupported fit options)"
                 )
         if adaptive_waves is not None:
             if adaptive_waves < 1:
@@ -627,121 +631,127 @@ class MultistartMixin:
             copy_into(self.params, params_r)
             self._opt_state = self._rng_state = None
 
-        if select == "consistency":
-            if self._init_args is None:
-                raise RuntimeError(
-                    "select='consistency' needs the original data_dict "
-                    "(unavailable on checkpoint-loaded models); use select='loss'"
-                )
-            src = self._init_args["data_dict"]
-            X_by_mod = {
-                mod.name: _as_numpy(src[mod.name]["spatial_coords"]).astype(np.float32)
-                for mod in self.spec.modalities
-            }
-            vi, Ns, _, _ = self.create_view_idx_dict(src)
-            runs = []
-
-            def score_run(r, params_r, losses):
-                copy_into(self.params, params_r)
-                G_means, _, _, _ = self.forward(X_by_mod, vi, Ns)
-                G_np = {k: np.asarray(v) for k, v in G_means.items()}
-                score = self._alignment_consistency(G_np)
-                if verbose:
-                    print(
-                        f"restart {r}: consistency {score:.6f} "
-                        f"(tail loss {np.mean(losses[-min(tail, len(losses)):]):.2f})",
-                        flush=True,
+        # The R-wide loop serves this call's waves only: its graph's pool
+        # goes with it (see ``wave_size``).
+        try:
+            if select == "consistency":
+                if self._init_args is None:
+                    raise RuntimeError(
+                        "select='consistency' needs the original data_dict "
+                        "(unavailable on checkpoint-loaded models); use select='loss'"
                     )
-                if np.isfinite(score):
-                    runs.append((score, r, params_r, losses, G_np))
-
-            if adaptive_waves is not None:
-                done, best_prev = 0, np.inf
-                while done < n_restarts:
-                    w = min(adaptive_waves, n_restarts - done)
-                    tr = None if init_transforms is None else init_transforms[done : done + w]
-                    for run in wave(done, w, tr):
-                        score_run(*run)
-                    done += w
-                    best_now = min((t[0] for t in runs), default=np.inf)
-                    if done >= n_restarts:
-                        break
-                    if np.isfinite(best_prev) and best_now >= best_prev * (1.0 - adaptive_rtol):
-                        if verbose:
-                            print(f"consistency stabilized after {done} restarts "
-                                  f"(best {best_now:.6f})", flush=True)
-                        break
-                    best_prev = best_now
-            else:
-                for run in trained_restarts():
-                    score_run(*run)
-            if not runs:
-                raise RuntimeError(
-                    "fit_multistart: no restart produced a finite consistency score"
-                )
-            runs.sort(key=lambda t: t[0])
-            _, best_r, best_params, best_losses, _ = runs[0]
-            self.multistart_winner_ = {
-                "restart": int(best_r),
-                "init_family": init_families[best_r],
-                "consistency": float(runs[0][0]),
-            }
-            if verbose:
-                print(f"winner: restart {best_r} (init={init_families[best_r]})", flush=True)
-            keep(best_params)
-            if ensemble_top_k > 1:
-                top = runs[: min(ensemble_top_k, len(runs))]
-                self.ensemble_G_means_ = {
-                    mod.name: np.mean([g[mod.name] for *_, g in top], axis=0)
+                src = self._init_args["data_dict"]
+                X_by_mod = {
+                    mod.name: _as_numpy(src[mod.name]["spatial_coords"]).astype(np.float32)
                     for mod in self.spec.modalities
                 }
-            return best_losses
+                vi, Ns, _, _ = self.create_view_idx_dict(src)
+                runs = []
 
-        if select == "predictive":
-            if self._init_args is None or self._ctor_kwargs is None:
-                raise RuntimeError(
-                    "select='predictive' needs the original data_dict "
-                    "(unavailable on checkpoint-loaded models)"
-                )
-            rng = np.random.default_rng(seed0)
-            train_dd, holdout = self._holdout_split(holdout_frac, rng)
-            sub = type(self)(train_dd, **self._ctor_kwargs)
-            best_seed, best_score = None, -np.inf
-            for r in range(n_restarts):
-                seed = seed0 + r
-                sub.reinitialize(seed)
-                sub.fit(n_epochs=n_epochs, **fit_kwargs)
-                score = self._predictive_score(sub, holdout)
+                def score_run(r, params_r, losses):
+                    copy_into(self.params, params_r)
+                    G_means, _, _, _ = self.forward(X_by_mod, vi, Ns)
+                    G_np = {k: np.asarray(v) for k, v in G_means.items()}
+                    score = self._alignment_consistency(G_np)
+                    if verbose:
+                        print(
+                            f"restart {r}: consistency {score:.6f} "
+                            f"(tail loss {np.mean(losses[-min(tail, len(losses)):]):.2f})",
+                            flush=True,
+                        )
+                    if np.isfinite(score):
+                        runs.append((score, r, params_r, losses, G_np))
+
+                if adaptive_waves is not None:
+                    done, best_prev = 0, np.inf
+                    while done < n_restarts:
+                        w = min(adaptive_waves, n_restarts - done)
+                        tr = None if init_transforms is None else init_transforms[done : done + w]
+                        for run in wave(done, w, tr):
+                            score_run(*run)
+                        done += w
+                        best_now = min((t[0] for t in runs), default=np.inf)
+                        if done >= n_restarts:
+                            break
+                        if np.isfinite(best_prev) and best_now >= best_prev * (1.0 - adaptive_rtol):
+                            if verbose:
+                                print(f"consistency stabilized after {done} restarts "
+                                      f"(best {best_now:.6f})", flush=True)
+                            break
+                        best_prev = best_now
+                else:
+                    for run in trained_restarts():
+                        score_run(*run)
+                if not runs:
+                    raise RuntimeError(
+                        "fit_multistart: no restart produced a finite consistency score"
+                    )
+                runs.sort(key=lambda t: t[0])
+                _, best_r, best_params, best_losses, _ = runs[0]
+                self.multistart_winner_ = {
+                    "restart": int(best_r),
+                    "init_family": init_families[best_r],
+                    "consistency": float(runs[0][0]),
+                }
                 if verbose:
-                    print(f"restart {r}: held-out predictive ll {score:.4f}", flush=True)
-                if np.isfinite(score) and score > best_score:
-                    best_seed, best_score = seed, score
-            if best_seed is None:
-                raise RuntimeError(
-                    "fit_multistart: no restart produced a finite held-out predictive likelihood"
-                )
-            if verbose:
-                print(f"winner: seed {best_seed}; retraining on full data", flush=True)
-            self.reinitialize(best_seed)
-            return self.fit(n_epochs=n_epochs, **fit_kwargs)
-        if select != "loss":
-            raise ValueError(f"unknown select {select!r}")
+                    print(f"winner: restart {best_r} (init={init_families[best_r]})", flush=True)
+                keep(best_params)
+                if ensemble_top_k > 1:
+                    top = runs[: min(ensemble_top_k, len(runs))]
+                    self.ensemble_G_means_ = {
+                        mod.name: np.mean([g[mod.name] for *_, g in top], axis=0)
+                        for mod in self.spec.modalities
+                    }
+                return best_losses
 
-        best = None
-        for r, params_r, losses in trained_restarts():
-            score = float(np.mean(losses[-min(tail, len(losses)):]))
-            if verbose:
-                print(f"restart {r}: tail-mean loss {score:.2f}", flush=True)
-            if not np.isfinite(score):
-                continue  # a diverged (NaN/inf) restart can never win
-            if best is None or score < best[0]:
-                best = (score, params_r, losses, r)
-        if best is None:
-            raise RuntimeError("fit_multistart: no restart produced a finite tail-mean loss")
-        self.multistart_winner_ = {
-            "restart": int(best[3]),
-            "init_family": init_families[best[3]],
-            "tail_loss": float(best[0]),
-        }
-        keep(best[1])
-        return best[2]
+            if select == "predictive":
+                if self._init_args is None or self._ctor_kwargs is None:
+                    raise RuntimeError(
+                        "select='predictive' needs the original data_dict "
+                        "(unavailable on checkpoint-loaded models)"
+                    )
+                rng = np.random.default_rng(seed0)
+                train_dd, holdout = self._holdout_split(holdout_frac, rng)
+                sub = type(self)(train_dd, **self._ctor_kwargs)
+                best_seed, best_score = None, -np.inf
+                for r in range(n_restarts):
+                    seed = seed0 + r
+                    sub.reinitialize(seed)
+                    sub.fit(n_epochs=n_epochs, **fit_kwargs)
+                    score = self._predictive_score(sub, holdout)
+                    if verbose:
+                        print(f"restart {r}: held-out predictive ll {score:.4f}", flush=True)
+                    if np.isfinite(score) and score > best_score:
+                        best_seed, best_score = seed, score
+                if best_seed is None:
+                    raise RuntimeError(
+                        "fit_multistart: no restart produced a finite held-out "
+                        "predictive likelihood"
+                    )
+                if verbose:
+                    print(f"winner: seed {best_seed}; retraining on full data", flush=True)
+                self.reinitialize(best_seed)
+                return self.fit(n_epochs=n_epochs, **fit_kwargs)
+            if select != "loss":
+                raise ValueError(f"unknown select {select!r}")
+
+            best = None
+            for r, params_r, losses in trained_restarts():
+                score = float(np.mean(losses[-min(tail, len(losses)):]))
+                if verbose:
+                    print(f"restart {r}: tail-mean loss {score:.2f}", flush=True)
+                if not np.isfinite(score):
+                    continue  # a diverged (NaN/inf) restart can never win
+                if best is None or score < best[0]:
+                    best = (score, params_r, losses, r)
+            if best is None:
+                raise RuntimeError("fit_multistart: no restart produced a finite tail-mean loss")
+            self.multistart_winner_ = {
+                "restart": int(best[3]),
+                "init_family": init_families[best[3]],
+                "tail_loss": float(best[0]),
+            }
+            keep(best[1])
+            return best[2]
+        finally:
+            self.__dict__.pop("_vec_loop_cache", None)

@@ -307,18 +307,36 @@ def init_params(
         params["mean_slopes"] = eyeVDD.copy()
         params["mean_intercepts"] = 0.1 * randn(V, D)
 
-    # Square mode: the variational factor is the raw 0.1 * randn draw.
+    def variational_factor(a: np.ndarray) -> np.ndarray:
+        """The initial variational factor. Square mode stores the raw
+        0.1 * randn draw; triangular mode chol(a a^T + jitter I), taken in
+        float64 on the host, so that both start from one q; whitened mode
+        the identity (the posterior covariance equals the prior's)."""
+        if spec.whitened_variational:
+            eye = np.eye(a.shape[-1], dtype=np.float32)
+            return np.broadcast_to(eye, a.shape).copy()
+        if not spec.triangular_variational:
+            return a
+        m = a @ np.swapaxes(a, -1, -2)
+        diag_mean = np.maximum(
+            1.0, np.trace(m, axis1=-2, axis2=-1).astype(np.float64) / m.shape[-1]
+        )
+        eye = np.eye(m.shape[-1], dtype=np.float64)
+        jit = spec.diagonal_offset * diag_mean[..., None, None] * eye
+        return np.linalg.cholesky(m.astype(np.float64) + jit).astype(np.float32)
+
     params["Xtilde"] = Xtilde
     params["Gtilde"] = Gtilde
-    params["delta_G"] = Xtilde.copy()
-    params["Omega_sqt_G"] = 0.1 * randn(V, D, m_X, m_X)
+    # Whitened mode stores w = L^-1 (u - mu_z): zero is the prior mean.
+    params["delta_G"] = np.zeros_like(Xtilde) if spec.whitened_variational else Xtilde.copy()
+    params["Omega_sqt_G"] = variational_factor(0.1 * randn(V, D, m_X, m_X))
 
     params["Omega_sqt_F"] = {}
     params["delta_F"] = {}
     params["W"] = {}
     for mod in spec.modalities:
         L = mod.n_latent
-        params["Omega_sqt_F"][mod.name] = 0.1 * randn(L, m_G, m_G)
+        params["Omega_sqt_F"][mod.name] = variational_factor(0.1 * randn(L, m_G, m_G))
         params["delta_F"][mod.name] = randn(m_G, L)
         if mod.use_lmc:
             params["W"][mod.name] = randn(L, mod.n_outputs)

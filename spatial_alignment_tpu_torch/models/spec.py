@@ -17,6 +17,9 @@ trisolve kernel (every Cholesky of a CUDA tensor runs the Cholesky kernel
 whatever it says), ``quad_diag_impl="pallas"`` the variance's quadratic
 forms to the quad kernels, and ``fused_factor_inverse="fused"`` the final
 factor slab to the fused factor-and-inverse kernel.
+``triangular_variational`` and ``whitened_variational`` read the stored
+variational factor as its lower-triangular Cholesky factor, the latter of
+the whitened state w = L^-1 (u - mu_z).
 """
 
 from __future__ import annotations
@@ -142,8 +145,6 @@ def check_supported(spec: ModelSpec) -> None:
     """Raise NotImplementedError for spec options the port does not have yet,
     naming the ROADMAP.md item that ports each."""
     unsupported = [
-        (spec.triangular_variational, "triangular_variational=True", "A6"),
-        (spec.whitened_variational, "whitened_variational=True", "A6"),
         (not spec.merged_factor_dispatch, "merged_factor_dispatch=False", "A10"),
     ]
     for bad, what, item in unsupported:

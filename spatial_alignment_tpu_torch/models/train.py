@@ -28,9 +28,15 @@ With ``width=R`` the step trains R restarts at once (``fit_multistart``):
 the loss function returns their R losses, the step differentiates their
 sum, so each restart's parameters get their own loss's gradient, and the
 loop records the R losses of every step. Each optimizer the loop accepts
-(``ZERO_STATE_OPTIMIZERS``) updates each element from that element's
+(``RESETTABLE_OPTIMIZERS``) updates each element from that element's
 gradient and state alone, so one optimizer over R-stacked parameters is R
 independent optimizers, as the JAX package's ``vmap`` of ``tx.update`` is.
+
+A graph holds the optimizer state's tensors, so each fit starts afresh by
+writing the state a new optimizer starts from into them: the loop records
+each state tensor's value as the optimizer first stores it (NAdam's
+``mu_product`` of 1, Rprop's step sizes, Adagrad's accumulators), during a
+priming step on zero gradients.
 
 On the CPU nothing is captured and the same step runs eagerly.
 """
@@ -38,6 +44,7 @@ On the CPU nothing is captured and the same step runs eagerly.
 from __future__ import annotations
 
 import gc
+from collections import defaultdict
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -45,7 +52,7 @@ import torch
 
 from .. import ops
 
-__all__ = ["CosineDecayAdam", "DEFAULT_LR", "TrainLoop", "check_zero_state", "resolve_recipe",
+__all__ = ["CosineDecayAdam", "DEFAULT_LR", "TrainLoop", "check_resettable", "resolve_recipe",
            "same_factory"]
 
 DEFAULT_LR = 1e-2
@@ -54,32 +61,63 @@ DEFAULT_LR = 1e-2
 CAPACITY = 1024
 # Eager steps on a side stream before capture.
 WARMUP_STEPS = 2
-# Optimizers whose fresh state is all zeros (moments, accumulators, step
-# counts), so that zeroing their state in place gives the state a new one
-# starts from. SGD qualifies without dampening: a zero momentum buffer then
-# takes the first gradient as the missing buffer of a new SGD does.
-ZERO_STATE_OPTIMIZERS = (
+# Elementwise optimizers whose fresh state is held in tensors from the
+# first step on, so that writing the values they first stored back into
+# those tensors gives the state a new one starts from. SGD qualifies without
+# dampening: a zero momentum buffer then takes the first gradient as the
+# missing buffer of a new SGD does.
+RESETTABLE_OPTIMIZERS = (
     torch.optim.Adam, torch.optim.AdamW, torch.optim.Adamax, torch.optim.RMSprop,
-    torch.optim.Adadelta, torch.optim.SGD,
+    torch.optim.Adadelta, torch.optim.SGD, torch.optim.NAdam, torch.optim.RAdam,
+    torch.optim.Adagrad, torch.optim.ASGD, torch.optim.Rprop,
 )
 
 
-def check_zero_state(optimizer: torch.optim.Optimizer):
-    """Raise unless ``optimizer``'s fresh state is all zeros (see
-    ``ZERO_STATE_OPTIMIZERS``): NAdam's ``mu_product``, ASGD's ``eta`` and
-    ``mu``, Rprop's ``step_size`` start elsewhere, and SGD with dampening
-    treats its first gradient apart."""
+def check_resettable(optimizer: torch.optim.Optimizer):
+    """Raise unless ``optimizer`` is one of ``RESETTABLE_OPTIMIZERS``: SGD
+    with dampening treats its first gradient apart (its buffer is missing,
+    not zero), and an optimizer that is not elementwise (LBFGS) cannot
+    train R-stacked restarts independently."""
     name = type(optimizer).__name__
     damped = isinstance(optimizer, torch.optim.SGD) and any(
         g["momentum"] and g["dampening"] for g in optimizer.param_groups
     )
-    if type(optimizer) not in ZERO_STATE_OPTIMIZERS or damped:
+    if type(optimizer) not in RESETTABLE_OPTIMIZERS or damped:
         raise ValueError(
-            f"fit() resets the optimizer's state in place at each call by zeroing it, which "
-            f"is a fresh state only for Adam, AdamW, Adamax, RMSprop, Adadelta and SGD "
-            f"without dampening, not for {name}{' with dampening' if damped else ''}; "
-            "step it with make_train_step, which builds a new one"
+            "fit() resets the optimizer's state in place at each call to the state a new one "
+            "starts from, which it can do for the elementwise optimizers "
+            f"{', '.join(o.__name__ for o in RESETTABLE_OPTIMIZERS)} (SGD without "
+            f"dampening), not for {name}{' with dampening' if damped else ''}; step it with "
+            "make_train_step, which builds a new one"
         )
+
+
+class _FirstValues(dict):
+    """One parameter's optimizer state that keeps a copy of each tensor as
+    the optimizer first stores it (``first``, shared with the caller)."""
+
+    def __init__(self, first: dict, *args):
+        super().__init__(*args)
+        self.first = first
+
+    def __setitem__(self, key, value):
+        if key not in self and isinstance(value, torch.Tensor):
+            self.first[key] = value.detach().clone()
+        super().__setitem__(key, value)
+
+
+class _RecordingState(dict):
+    """``optimizer.state`` during the priming step: each parameter's state
+    is a :class:`_FirstValues` writing into ``fresh[param]``."""
+
+    def __init__(self, fresh: dict, existing):
+        super().__init__((p, _FirstValues(fresh.setdefault(p, {}), st))
+                         for p, st in existing.items())
+        self.fresh = fresh
+
+    def __missing__(self, p):
+        state = self[p] = _FirstValues(self.fresh.setdefault(p, {}))
+        return state
 
 
 class CosineDecayAdam:
@@ -153,7 +191,7 @@ class TrainLoop:
     learning rate is a tensor that each step sets from the chunk's
     schedule; ``width``: ``loss_fn`` returns that many losses, one a
     restart, and the step minimizes their sum. Raises when the optimizer's
-    fresh state is not all zeros (:func:`check_zero_state`), and on CUDA
+    state cannot be reset in place (:func:`check_resettable`), and on CUDA
     when the step cannot be captured.
     """
 
@@ -166,7 +204,7 @@ class TrainLoop:
         scheduled: bool = False,
         width: Optional[int] = None,
     ):
-        check_zero_state(optimizer)
+        check_resettable(optimizer)
         self.width = width
         self.names = [name for name, _ in named_params]
         self.leaves = [leaf for _, leaf in named_params]
@@ -208,15 +246,32 @@ class TrainLoop:
                 leaf.copy_(value)
 
     def _prime(self):
-        """Create the optimizer's state by one step on zero gradients, then
-        put the parameters back and zero the state: a fresh state, held in
+        """Create the optimizer's state by one step on zero gradients,
+        recording each state tensor's value as the optimizer first stores
+        it (state it made at construction counts as stored then), then put
+        the parameters back and reset the state: a fresh state, held in
         tensors that :meth:`reset_state` and :meth:`load_state` write."""
         saved = [leaf.detach().clone() for leaf in self.leaves]
-        for leaf in self.leaves:
-            leaf.grad = torch.zeros_like(leaf)
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        opt = self.optimizer
+        fresh = {p: {k: v.detach().clone() for k, v in st.items() if isinstance(v, torch.Tensor)}
+                 for p, st in opt.state.items()}
+        opt.state = _RecordingState(fresh, opt.state)
+        try:
+            for leaf in self.leaves:
+                leaf.grad = torch.zeros_like(leaf)
+            opt.step()
+        finally:
+            opt.state = defaultdict(dict, {p: dict(st) for p, st in opt.state.items()})
+        opt.zero_grad(set_to_none=True)
         self._put_back(saved)
+        self._fresh = {f"{name}/{key}": fresh.get(leaf, {}).get(key)
+                       for name, leaf in zip(self.names, self.leaves)
+                       for key, value in opt.state.get(leaf, {}).items()
+                       if isinstance(value, torch.Tensor)}
+        missing = [k for k, v in self._fresh.items() if v is None]
+        if missing:
+            raise ValueError(f"{type(opt).__name__} stored its state {missing} in a way "
+                             "the loop cannot reset")
         self.reset_state()
 
     def _capture(self):
@@ -300,12 +355,12 @@ class TrainLoop:
         }
 
     def reset_state(self):
-        """A fresh optimizer state in place: every state tensor zeroed (Adam's
-        moments and step count; SGD's momentum buffers), which the
-        optimizers :func:`check_zero_state` lets through start from."""
+        """A fresh optimizer state in place: every state tensor set to the
+        value the optimizer first stored in it (zero for Adam's moments and
+        step count, one for NAdam's ``mu_product``)."""
         with torch.no_grad():
-            for value in self.state().values():
-                value.zero_()
+            for key, value in self.state().items():
+                value.copy_(self._fresh[key])
 
     def load_state(self, flat: dict):
         """Write a saved state ({path: array}, as :meth:`state` names it)

@@ -54,10 +54,6 @@ from .spec import (
 from .train import DEFAULT_LR, TrainLoop, resolve_recipe, same_factory
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
-
-
 class _hybridmethod:
     """Descriptor: the method gets the instance when called on one, the class
     when called on the class (``VariationalGPSA.load(path)`` builds a model,
@@ -295,27 +291,37 @@ class VariationalGPSA(MultistartMixin):
         """Reference-layout forward pass.
 
         Returns (G_means, G_samples, F_latent_samples, F_observed_samples) as
-        numpy arrays in the concatenated-per-view layout.
+        numpy arrays in the concatenated-per-view layout. With ``G_test``
+        ({mod: (n_test, D)} or the reference's (1, n_test, D) aligned
+        coordinates) it also imputes the outputs there
+        (:func:`.core.impute_at`) and appends their S samples,
+        {mod: (S, n_test, L)} latent and {mod: (S, n_test, P)} observed.
         """
         del Ns, prediction_mode
-        if G_test is not None:
-            raise _not_ported("forward(G_test=...) imputation", "A6")
         if view_idx is None:
             view_idx = self.view_idx
         spec = self._eval_spec(view_idx)
         hp = merge_hyperparams(self.params, self.consts)
+        if G_test is not None:
+            G_test = {m: torch.as_tensor(np.asarray(_as_numpy(v), np.float32), device=self.device)
+                      for m, v in G_test.items()}
         with torch.no_grad():
             result = core.forward(
-                spec, hp, self._coords_batch(spec, X_spatial), S, generator=self._gen
+                spec, hp, self._coords_batch(spec, X_spatial), S, generator=self._gen,
+                G_test=G_test,
             )
         self._last_aux = (hp, result.warp_aux, result.data_aux)
         unpack = lambda d: {m: unpack_points(spec, m, d[m]) for m in spec.modality_names}
-        return (
+        out = (
             unpack(result.G_means),
             unpack(result.G_samples),
             unpack(result.F_latent_samples),
             unpack(result.F_observed_samples),
         )
+        if G_test is None:
+            return out
+        to_np = lambda d: {m: _as_numpy(v) for m, v in d.items()}
+        return out + (to_np(result.F_latent_samples_test), to_np(result.F_observed_samples_test))
 
     def predict(self, X_spatial: Dict[str, np.ndarray], view_idx=None, Ns=None):
         """Deterministic posterior prediction: (G_means, F_mean, F_var) in
@@ -418,14 +424,28 @@ class VariationalGPSA(MultistartMixin):
         training step on the model's parameters (loss, backward, optimizer
         step) and returns the loss as a 0-d device tensor. ``optimizer`` is a
         factory ``params -> torch.optim.Optimizer`` (default Adam at ``lr``,
-        capturable on CUDA). A schedule the factory carries
-        (``lr_schedule``) is not applied here. From the same parameters,
-        optimizer state and generator state, these steps give the losses of
-        ``fit``'s captured steps bit for bit: this is their eager reference."""
+        capturable on CUDA). A factory with ``lr_schedule(steps)`` has its
+        learning rate, a tensor, set to the schedule's value at this step's
+        count before each step, as ``fit`` sets it (the JAX package's
+        optax schedule advances with the optimizer state's count). From the
+        same parameters, optimizer state and generator state, these steps
+        give the losses of ``fit``'s captured steps bit for bit: this is
+        their eager reference."""
         opt = self._optimizer(optimizer, lr)
         loss_fn = self._step_loss(S, minibatch_size)
+        lr_schedule = getattr(optimizer, "lr_schedule", None)
+        count = 0
 
         def step(temperature=1.0) -> torch.Tensor:
+            nonlocal count
+            if lr_schedule is not None:
+                value = np.float32(lr_schedule(count))
+                for group in opt.param_groups:
+                    if isinstance(group["lr"], torch.Tensor):
+                        group["lr"].fill_(float(value))
+                    else:
+                        group["lr"] = float(value)
+                count += 1
             opt.zero_grad(set_to_none=True)
             loss = loss_fn(temperature)
             loss.backward()
@@ -504,9 +524,10 @@ class VariationalGPSA(MultistartMixin):
 
         ``optimizer`` is a factory ``params -> torch.optim.Optimizer``
         (default: Adam at ``lr``, capturable on CUDA; one that cannot be
-        captured raises on CUDA, and so does one whose fresh state is not
-        all zeros, see :func:`.train.check_zero_state`). A factory with ``lr_schedule(steps)`` has
-        its learning rate, a tensor, set from it before each step.
+        captured raises on CUDA, and so does one whose fresh state the loop
+        cannot restore, see :func:`.train.check_resettable`). A factory with
+        ``lr_schedule(steps)`` has its learning rate, a tensor, set from it
+        before each step.
         ``callback(model, epoch, losses)`` fires every ``print_every``
         epochs; ``convergence_checker(iternum, losses)`` can stop early at
         chunk ends (see :mod:`..utils.convergence`);

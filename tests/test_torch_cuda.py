@@ -230,6 +230,9 @@ _SOLVES += [((m, m), (3, m, n)) for m in (33, 200) for n in (2, 33)]
 # (m > 592 against 32 columns, m > 854 against 2), L is read from global
 # memory.
 _SOLVES += [((1, 600, 600), (1, 600, 33)), ((1, 900, 900), (1, 900, 2))]
+# The whitened m = 200 fit's width-N solves: data layer (a factor shared by
+# the 5 samples) and warp layer.
+_SOLVES += [((200, 200), (5, 200, 4050)), ((1, 200, 200), (1, 200, 2025))]
 
 
 @pytest.mark.parametrize("trans", [False, True])
@@ -696,6 +699,26 @@ def test_cuda_captured_fit_matches_eager_steps(cuda_device, m, opt_ins, minibatc
     assert captured._train_loop_cache["loop"].graph is not None
     want = _eager_losses(eager, 6, S=2, minibatch_size=minibatch)
     np.testing.assert_array_equal(losses, want)
+    assert _leaves_equal(captured, eager)
+
+
+@pytest.mark.parametrize("mode,per_step", [
+    ("triangular_variational", (1, 1, 8, 2, 2)), ("whitened_variational", (2, 0, 4, 2, 2))],
+    ids=["triangular", "whitened"])
+def test_cuda_variational_fit_matches_eager_steps(cuda_device, mode, per_step):
+    """Both variational parameterizations with the opt-ins (m = 50, mode
+    mixed): the captured fit equals the eager steps bit for bit, with
+    (Cholesky, factor, solve, quad forward, quad backward) launches a step:
+    triangular factors and inverts the Kuu slab in the fused factor and
+    runs the mixed mode's eight substitutions; whitened wants no inverse
+    and runs one width-N solve a layer and its transposed solve."""
+    kw = {mode: True, "svgp_solve_mode": "mixed"}
+    captured, eager = _graph_model(cuda_device, 50, **kw), _graph_model(cuda_device, 50, **kw)
+    ch.launches = factor.launches = ts.launches = quad.fwd_launches = quad.bwd_launches = 0
+    losses = captured.fit(n_epochs=4, S=2)
+    got = (ch.launches, factor.launches, ts.launches, quad.fwd_launches, quad.bwd_launches)
+    assert got == tuple(4 * k for k in per_step)
+    np.testing.assert_array_equal(losses, _eager_losses(eager, 4, S=2))
     assert _leaves_equal(captured, eager)
 
 

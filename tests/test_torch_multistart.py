@@ -377,6 +377,97 @@ def test_restart_run_equals_each_restart_alone():
             assert _rel(a.detach(), b.detach()[r]) <= 1e-4
 
 
+def test_restart_nadam_steps_equal_each_restart_alone():
+    """An optimizer whose fresh state is not zero (NAdam's mu_product starts
+    at 1) trains vectorized restarts: the R-wide loop restores the state a
+    new NAdam starts from, so three R-wide steps equal each restart's three
+    steps under a new NAdam from the same parameters and draws: losses rel
+    1e-5, as test_restart_run_equals_each_restart_alone holds Adam's (the
+    first loss, before any update, already parts by 8e-7: batched float32
+    products in another order), parameters rel 1e-4 as there (a leaf that
+    starts at 0, the warp variances, is three normalized updates, each
+    passing a gradient difference on unshrunk)."""
+    dd = make_two_view_data(n_per_view=20)
+    m = _model(dd, n_latent_gps={"expression": 2}, fixed_view_idx=0)
+    R, S, T = 3, 2, 3
+    nadam = lambda p: torch.optim.NAdam(p, lr=1e-2)
+    values = m._restart_inits(R, 0)
+    gen = torch.Generator().manual_seed(1)
+    draws = [tcore.draw_restart_noise(m.spec, R, S, gen, m.device) for _ in range(T)]
+    feed = iter(draws)
+    m._draw_restart_noise = lambda R_, S_: next(feed)
+    losses = m._fit_restarts_vectorized(T, R, 0, S=S, optimizer=nadam)[1]
+    params = m._vec_loop_cache["params"]
+    for r in range(R):
+        alone = _model(dd, n_latent_gps={"expression": 2}, fixed_view_idx=0)
+        with torch.no_grad():
+            for dst, src in zip(alone.parameters(), leaves(values)):
+                dst.copy_(src[r])
+        steps = iter(draws)
+
+        def draw(S_, r=r):
+            wn, dn, _ = next(steps)
+            return wn[r], {k: v[r] for k, v in dn.items()}
+
+        alone._draw_noise = draw
+        step, _ = alone.make_train_step(S=S, optimizer=nadam)
+        np.testing.assert_allclose([float(step()) for _ in range(T)], losses[r], rtol=1e-5)
+        for a, b in zip(alone.parameters(), leaves(params)):
+            assert _rel(a.detach(), b.detach()[r]) <= 1e-4
+
+
+def test_fit_multistart_drops_the_restart_loop():
+    """Once fit_multistart returns, the model holds no R-wide loop (its
+    graph's pool would be about R times one fit's); fit()'s own stays."""
+    m = _model()
+    m.fit(3, S=2)
+    fit_loop = m._train_loop_cache["loop"]
+    m.fit_multistart(n_epochs=5, n_restarts=2, S=2, verbose=False, select="loss",
+                     vectorized=True)
+    assert "_vec_loop_cache" not in m.__dict__
+    assert m._train_loop_cache["loop"] is fit_loop
+
+
+def _saved_bytes(loss_fn):
+    """Bytes of the tensors autograd saves for the backward of ``loss_fn()``."""
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss_fn()
+    return sum(saved)
+
+
+def test_chunks_are_recomputed_outside_the_restart_vmap_only():
+    """data_chunk_size bounds what one restart's backward keeps (each
+    chunk is recomputed), not what the R-wide step keeps: under the restart
+    vmap every chunk's intermediates are saved, as the JAX package's
+    lax.map keeps them under its vmap (tools/c3_memory.py prints both)."""
+    dd = make_two_view_data(n_per_view=30)
+    R, S = 3, 2
+    kept = {}
+    for chunk in (None, 16):
+        m = _model(dd, m_X_per_view=8, m_G=8, n_latent_gps={"expression": 2},
+                   fixed_view_idx=0, data_chunk_size=chunk)
+        params = tree_map(lambda v: v.requires_grad_(True), m._restart_inits(R, 0))
+        wn, dn, _ = tcore.draw_restart_noise(m.spec, R, S, torch.Generator().manual_seed(0),
+                                             m.device)
+        m._draw_restart_noise = lambda R_, S_: (wn, dn, None)
+        alone = tree_map(lambda v: v.detach()[0].clone().requires_grad_(True), params)
+        kept[chunk] = (
+            _saved_bytes(lambda: m._restart_step_loss(S, None, R, params)(1.0)),
+            _saved_bytes(lambda: tcore.negative_elbo(
+                m.spec, alone, m.consts, m._batch, S, 1.0, warp_noise=wn[0],
+                data_noise={k: v[0] for k, v in dn.items()})),
+        )
+    (wide_whole, one_whole), (wide_chunked, one_chunked) = kept[None], kept[16]
+    assert one_chunked < 0.7 * one_whole
+    assert wide_chunked >= wide_whole
+
+
 # ---------------------------------------------------------------------------
 # Behaviour (tests/test_model_core.py, tests/test_checkpoint_plotting.py)
 # ---------------------------------------------------------------------------
@@ -461,9 +552,12 @@ def test_fit_multistart_wave_size_and_partial_wave(capsys):
     """Fixed waves of 2 over 5 restarts: the last wave trains one surplus
     restart and discards it; one captured width serves every wave."""
     m = _model()
+    loops = []
+    m._restart_loop = lambda *a: loops.append(type(m)._restart_loop(m, *a)) or loops[-1]
     losses = m.fit_multistart(n_epochs=20, n_restarts=5, S=2, verbose=True, wave_size=2)
     assert capsys.readouterr().out.count(": consistency ") == 5
-    assert np.isfinite(losses).all() and m._vec_loop_cache["key"][0] == 2
+    assert np.isfinite(losses).all() and len(loops) == 3
+    assert all(loop is loops[0] for loop in loops) and loops[0].width == 2
     m2 = _model(fixed_view_idx=0)
     losses = m2.fit_multistart(n_epochs=20, n_restarts=4, S=2, verbose=False, wave_size=3,
                                init="mixed")
@@ -483,13 +577,13 @@ def test_fit_multistart_vectorized_refusals():
                          average_last=3)
     with pytest.raises(ValueError, match="vectorized must be"):
         m.fit_multistart(n_epochs=5, n_restarts=2, verbose=False, vectorized="sometimes")
-    nadam = lambda p: torch.optim.NAdam(p)
-    with pytest.raises(RuntimeError, match="not elementwise"):
+    damped = lambda p: torch.optim.SGD(p, lr=1e-4, momentum=0.9, dampening=0.5)
+    with pytest.raises(RuntimeError, match="not elementwise or cannot be reset"):
         m.fit_multistart(n_epochs=5, n_restarts=2, verbose=False, vectorized=True,
-                         optimizer=nadam)
+                         optimizer=damped)
     # "auto" trains such a factory sequentially, where fit() refuses it.
-    with pytest.raises(ValueError, match="NAdam"):
-        m.fit_multistart(n_epochs=5, n_restarts=2, verbose=False, optimizer=nadam)
+    with pytest.raises(ValueError, match="SGD with dampening"):
+        m.fit_multistart(n_epochs=5, n_restarts=2, verbose=False, optimizer=damped)
 
 
 @pytest.mark.parametrize("vectorized", [True, False], ids=["vectorized", "sequential"])

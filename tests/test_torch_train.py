@@ -61,6 +61,47 @@ def test_make_train_step_equals_fit(minibatch):
     assert _same_params(fitted, stepped)
 
 
+def test_make_train_step_applies_the_factory_schedule():
+    """make_train_step writes a factory's lr_schedule into its learning rate
+    before each step, as fit() does: n steps under CosineDecayAdam(lr, n) at
+    the recipe's temperature 0 equal fit(n, recipe="accurate") bit for bit."""
+    fitted, stepped = _model(), _model()
+    n = 6
+    want = fitted.fit(n_epochs=n, S=2, recipe="accurate")
+    step, opt = stepped.make_train_step(S=2, optimizer=CosineDecayAdam(1e-2, n))
+    got = [float(step(0.0)) for _ in range(n)]
+    np.testing.assert_array_equal(got, want)
+    assert _same_params(fitted, stepped)
+    assert float(opt.param_groups[0]["lr"]) == CosineDecayAdam(1e-2, n).lr_schedule(n - 1)
+
+
+def test_make_train_step_schedule_matches_optax():
+    """Against the JAX package's make_train_step under
+    optax.adam(optax.cosine_decay_schedule(lr, n, alpha=1e-2)), whose
+    schedule advances with the optimizer state's count, on the JAX
+    package's own noise: losses and parameters rel 1e-4, as
+    test_five_adam_steps_match_optax holds fit()."""
+    dd = make_two_view_data(n_per_view=24, n_outputs=3)
+    jm, tm = model_pair(dd, m_X_per_view=8, m_G=8, n_latent_gps={"expression": 2},
+                        fixed_view_idx=0)
+    n, lr, S = 5, 1e-2, 2
+    jstep, state = jm.make_train_step(
+        lr=lr, S=S, optimizer=optax.adam(optax.cosine_decay_schedule(lr, n, alpha=1e-2)))
+    params, losses_j, noises = jm.params, [], []
+    for t in range(n):
+        key = jax.random.PRNGKey(100 + t)
+        params, state, loss = jstep(params, state, key)
+        losses_j.append(float(loss))
+        noises.append(jax_noise(jm.spec, key, S))
+    feed = iter(noises)
+    tm._draw_noise = lambda S_: next(feed)
+    step, _ = tm.make_train_step(lr=lr, S=S, optimizer=CosineDecayAdam(lr, n))
+    np.testing.assert_allclose([float(step()) for _ in range(n)], losses_j, rtol=1e-4)
+    for path, want in jax.tree_util.tree_flatten_with_path(params)[0]:
+        got = leaf(tm.params, path).detach()
+        assert _rel(got, want) <= 1e-4, (jax.tree_util.keystr(path), _rel(got, want))
+
+
 @pytest.mark.parametrize("temp", [1.0, 0.37, 0.0])
 def test_tensor_temperature_gives_the_float_loss(temp):
     model = _model()
@@ -207,9 +248,11 @@ def test_each_fit_starts_a_fresh_optimizer_state_on_the_cached_loop():
     assert a._train_loop_cache["loop"] is not loop
 
 
-# Factories whose fresh state is all zeros, which fit() resets in place;
-# each is one object, so that a second fit() reuses its cached loop.
-ZERO_STATE_FACTORIES = {
+# Factories whose fresh state fit() restores in place (the values each state
+# tensor was first stored with: zeros, NAdam's mu_product of 1, Rprop's step
+# sizes, Adagrad's accumulators); each is one object, so that a second fit()
+# reuses its cached loop.
+RESETTABLE_FACTORIES = {
     "adam_amsgrad": lambda p: torch.optim.Adam(p, lr=1e-2, amsgrad=True),
     "adamw": lambda p: torch.optim.AdamW(p, lr=1e-2),
     "adamax": lambda p: torch.optim.Adamax(p, lr=1e-2),
@@ -218,14 +261,19 @@ ZERO_STATE_FACTORIES = {
     "adadelta": lambda p: torch.optim.Adadelta(p, lr=1.0),
     "sgd_momentum": lambda p: torch.optim.SGD(p, lr=1e-4, momentum=0.9),
     "sgd_nesterov": lambda p: torch.optim.SGD(p, lr=1e-4, momentum=0.9, nesterov=True),
+    "nadam": lambda p: torch.optim.NAdam(p, lr=1e-2),
+    "radam": lambda p: torch.optim.RAdam(p, lr=1e-2),
+    "adagrad": lambda p: torch.optim.Adagrad(p, lr=1e-2, initial_accumulator_value=0.1),
+    "asgd": lambda p: torch.optim.ASGD(p, lr=1e-2),
+    "rprop": lambda p: torch.optim.Rprop(p, lr=1e-2),
 }
 
 
-@pytest.mark.parametrize("name", sorted(ZERO_STATE_FACTORIES))
+@pytest.mark.parametrize("name", sorted(RESETTABLE_FACTORIES))
 def test_each_fit_equals_steps_of_a_new_optimizer(name):
     """Two fit() calls on one cached loop (its state reset in place) against
     make_train_step with a new optimizer each time, bit for bit."""
-    factory = ZERO_STATE_FACTORIES[name]
+    factory = RESETTABLE_FACTORIES[name]
     fitted, stepped = _model(), _model()
     got = [fitted.fit(n_epochs=3, S=2, optimizer=factory) for _ in range(2)]
     want = []
@@ -237,14 +285,14 @@ def test_each_fit_equals_steps_of_a_new_optimizer(name):
 
 
 @pytest.mark.parametrize("name,factory", [
-    ("NAdam", lambda p: torch.optim.NAdam(p, lr=1e-2)),
-    ("ASGD", lambda p: torch.optim.ASGD(p, lr=1e-2)),
-    ("Rprop", lambda p: torch.optim.Rprop(p, lr=1e-2)),
     ("SGD with dampening", lambda p: torch.optim.SGD(p, lr=1e-4, momentum=0.9, dampening=0.5)),
-], ids=["nadam", "asgd", "rprop", "sgd_dampening"])
+    ("LBFGS", lambda p: torch.optim.LBFGS(p, lr=1e-2)),
+], ids=["sgd_dampening", "lbfgs"])
 def test_optimizer_without_a_zero_fresh_state_refuses(name, factory):
     """fit() could not reset these in place to the state a new one starts
-    from, so it names them and refuses rather than train otherwise."""
+    from (a damped SGD's missing momentum buffer is not a zero one; LBFGS
+    is not elementwise), so it names them and refuses rather than train
+    otherwise."""
     with pytest.raises(ValueError, match=f"not for {name}"):
         _model().fit(n_epochs=2, S=2, optimizer=factory)
 
