@@ -21,7 +21,10 @@ models; and the triangular and whitened variational parameterizations
 (bench.py's fourth key at m = 50, the m = 200 model in both, the whitened
 one also with the opt-ins, which sends its width-N solves to the solve
 kernel, and the forced 100k model whitened) with ``forward(G_test=)``
-imputation. Every ``fit()`` runs its
+imputation; and ``WarpGPMLE``, the maximum-likelihood model. From 2,000
+points the models resolve the precision names to high/default, which runs
+their variance products in one TF32 pass (cuBLAS, and the quad kernels'
+one-pass build on the opt-in route). Every ``fit()`` runs its
 step as replays of a captured CUDA graph, so every kernel of every path
 launches inside the graph. The launch counts of a captured fit are the
 captured step's counts times its replays: each fit_* phase holds them
@@ -61,6 +64,12 @@ JSON line each:
              the expansion form, with the bfloat16 store, two launches
              bit-equal, its row split, and beside its time an empty
              kernel's, the floor of a launch
+  kernels_precision  the quad kernels' one-pass TF32 build (the name
+             "default", which the m = 200 and m = 384 models resolve to) on
+             the inputs the opt-in fits hand it: within error_bounds of
+             float64 and of the plain version at "default" (cuBLAS TF32),
+             two launches bit-equal, timed beside the 3xTF32 build, cuBLAS
+             TF32 making t and the one-pass bound
   kernels_variational  the Cholesky at the Kuu-only slabs of the
              triangular and whitened routes ((2, 200, 200), (2, 100, 100)),
              the solve at the whitened opt-in model's width-N shapes (L
@@ -79,6 +88,18 @@ JSON line each:
              2 Cholesky launches a step, no plain call, peak memory
   fit_m384_pallas  the same model with the opt-ins, 50 steps: exact
              launches a step of every kernel, first loss beside fit_m384's
+  fit_m200_highest, fit_m200_pallas_highest  the m = 200 models with both
+             precision names at highest (fp32 in cuBLAS, 3xTF32 in the quad
+             kernels), 200 steps each
+  precision  the names on the card: first loss and gradients with the names
+             at high/default against highest, same parameters and draws, on
+             both m = 200 routes, at the constructor's parameters and with
+             every lengthscale 0.3 and 1.0, beside float64 on the CPU (loss
+             within 1e-3; gradients within 1e-2 on each leaf whose float32
+             gradient lies within 1e-3 of float64); each route's steps/s and
+             aligned error beside its twin's; the TF32 GEMMs of a captured
+             step by the profiler (none in the twin's); PyTorch's TF32 flags
+             as before the fits
   predict    predict() and forward(S=5) on the m = 200 models
   fit_m50_triangular  bench.py's fourth key (triangular_variational, m = 50,
              kl_inverse) on fit_m50's grid, 300 steps: 2 Cholesky a step (its
@@ -133,6 +154,13 @@ JSON line each:
   resume_on_card  twins of the fit_m200 model: fit(40) against fit(20), save,
              VariationalGPSA.load, fit(20, resume_from=): losses and
              parameters bit for bit equal
+  mle        WarpGPMLE at experiments/simulations/two_dimensional_mle.py's
+             configuration (two views of an 8 x 8 grid, fixed warp
+             variances 0.01 and lengthscales 10, view 0 fixed, 2,000 steps
+             at lr 1e-2): captured, 4 Cholesky launches a step, falling
+             losses, the fixed view's G its coords bit for bit, aligned
+             error below the data's beside the JAX record; then a 16 x 16
+             grid (512 points), 200 steps, timed; the Cholesky at their Grams
   multistart_m50  fit_multistart at the JAX package's accuracy harness, full
              width (seed 0's draw, two views of 100, m = 50, 5 latent GPs;
              16 restarts of 10,000 epochs, consistency selection, top-2
@@ -161,6 +189,7 @@ JSON line each:
              multistart steps (their real inputs, captured from one R-wide
              loss and gradient of each route) against its plain version,
              times beside the bound and the library call
+  kernels_precision_folded  kernels_precision at the restart-folded shapes
   memory_after_multistart  fit_multistart drops its R-wide loop when it
              returns (each multistart phase records the bytes it kept,
              held near 0); here each route's R-wide loop is captured again
@@ -1019,7 +1048,9 @@ def phase_new_kernels(device, captured, peaks, extras=True):
                     L.transpose(-1, -2) if trans else L, B, upper=trans)),
                 "bound_ms": b, "bound_by": by})
         elif key == "quad_fwd":
-            x, F = args
+            # The 3xTF32 build (the names high and highest); the path's own
+            # name, and its one-pass build, are kernels_precision's.
+            x, F, path_precision = args
             G, N, m = x.shape
             Lc = F.shape[-3]
             yk, yp = quad.quad_fwd_kernel(x, F), quad.quad_diag_plain(x, F)
@@ -1043,7 +1074,8 @@ def phase_new_kernels(device, captured, peaks, extras=True):
             b, by = bound_ms(n_bytes, 3 * 2 * G * N * Lc * m * m, peaks, peaks[2])
             b32, _ = bound_ms(n_bytes, 2 * G * N * Lc * m * m, peaks)
             rows["quad_fwd"].append({
-                "x": list(x.shape), "F": list(F.shape), "rel_vs_plain": rel_real,
+                "x": list(x.shape), "F": list(F.shape), "path_precision": path_precision,
+                "rel_vs_plain": rel_real,
                 "rel_vs_plain_random": rel_rand, "max_abs_err": float((yk - yp).abs().max()),
                 "bit_equal_twice": True, "products": "3xTF32 mma.sync m16n8k8",
                 "tile": [qlib.sat_quad_fwd_tile_rows(G, N, m, Lc),
@@ -1055,7 +1087,7 @@ def phase_new_kernels(device, captured, peaks, extras=True):
                 "library": "torch.matmul producing t only",
                 "bound_ms": b, "bound_by": by, "bound_fp32_ms": b32})
         elif key == "quad_bwd":
-            x, F, dy = args
+            x, F, dy, path_precision = args
             G, N, m = x.shape
             Lc = F.shape[-3]
             dxk, dFk = quad.quad_bwd_kernel(x, F, dy)
@@ -1084,7 +1116,8 @@ def phase_new_kernels(device, captured, peaks, extras=True):
             b32, _ = bound_ms(n_bytes, 3 * 2 * G * N * Lc * m * m, peaks)
             design = quad.bwd_design(G, N, m, Lc, G if F.dim() == 4 else 1)
             rows["quad_bwd"].append({
-                "x": list(x.shape), "F": list(F.shape), "rel_vs_plain": rel_real,
+                "x": list(x.shape), "F": list(F.shape), "path_precision": path_precision,
+                "rel_vs_plain": rel_real,
                 "rel_vs_plain_random": rel_rand,
                 "max_abs_err": max(float((dxk - dxp).abs().max()), float((dFk - dFp).abs().max())),
                 "bit_equal_twice": True,
@@ -2215,7 +2248,8 @@ def phase_variational_kernels(device, peaks, models, impute):
            if key == "quad_fwd" and args[0].shape[-2] == len(grid)]
     check([(tuple(a[0].shape), tuple(a[1].shape)) for _, _, a in imp]
           == [((1, len(grid), 200), (10, 200, 200))],
-          f"{imp_name}: imputation quad forward inputs {[[a.shape for a in i[2]] for i in imp]}")
+          f"{imp_name}: imputation quad forward inputs "
+          f"{[[tuple(a.shape) for a in i[2] if torch.is_tensor(a)] for i in imp]}")
     others[("quad_fwd_impute",)] = imp[0]
     new_chol = {s: a for s, a in chol.items() if s in ((2, 200, 200), (2, 100, 100))}
     check(sorted(new_chol) == [(2, 100, 100), (2, 200, 200)],
@@ -2356,6 +2390,416 @@ def phase_memory_after_multistart(models, predict):
          restart_graph_pools_total_bytes=sum(pools.values()), **out)
 
 
+# ---------------------------------------------------------------------------
+# The precision names on the card (models with >= 2,000 points resolve to
+# svgp_matmul_precision "high" and svgp_variance_precision "default").
+# ---------------------------------------------------------------------------
+
+HIGHEST = dict(svgp_matmul_precision="highest", svgp_variance_precision="highest")
+
+
+# Relative error of one product of two operands rounded to TF32 (nearest:
+# 2^-11 each) or truncated to it (2^-10 each, which cuBLAS may do), and of
+# the 3xTF32 split (lo * lo dropped, lo read as TF32: about 2^-21).
+QUAD_PRODUCT_ERR = {"tf32": 2.0**-10 + 2.0**-22, "tf32_truncated": 2.0**-9 + 2.0**-20,
+                    "3xtf32": 2.0**-20}
+
+
+def error_bounds(x, F, dy, mode: str = "tf32"):
+    """Exact values in float64 and first-order bounds on the error of a
+    forward and backward whose products carry ``QUAD_PRODUCT_ERR[mode]`` each,
+    summed in float32 (each of the K terms of a sum off by up to K 2^-23,
+    which allows truncating adds). For x (G, N, m), F (L, m, m) or
+    (G, L, m, m), dy (G, L, N): ((out, out_bound), (dx, dx_bound),
+    (dF, dF_bound)), every one float64 of its output's shape.
+
+    t = x F_b is off by e_t = (u + (m + 2) 2^-23) |x| |F_b|; the output
+    sum_k t_k^2 by sum_k (2 |t_k| e_k + e_k^2) plus its own float32 sum; w =
+    2 dy t by 2 |dy| e_t, and the second products by u on each term plus
+    their float32 sums over L m (dx) or the factor's G N rows (dF), each
+    with 64 more for the blocks' partial sums. The bound the quad kernels
+    are held to (``kernels_precision``, ``tests/test_torch_cuda.py``).
+    """
+    import torch
+
+    u = QUAD_PRODUCT_ERR[mode]
+    x64, F64, dy64 = x.double(), F.double(), dy.double()
+    xa, Fa = x64.abs(), F64.abs()
+    G, N, m = x.shape
+    L = F.shape[-3]
+    sum_err = lambda k: (k + 2) * 2.0**-23
+    t = x64.unsqueeze(1) @ F64  # (G, L, N, m)
+    e_t = (u + sum_err(m)) * (xa.unsqueeze(1) @ Fa)
+    out = t.square().sum(-1)
+    out_b = (2 * t.abs() * e_t + e_t.square()).sum(-1) + sum_err(m) * out
+    d2 = 2 * dy64.abs().unsqueeze(-1)
+    w = 2 * dy64.unsqueeze(-1) * t
+    w_abs = d2 * (t.abs() + e_t)
+    e_w = d2 * e_t + u * w_abs
+    Ft = Fa.transpose(-1, -2)
+    dx = (w @ F64.transpose(-1, -2)).sum(1)
+    dx_b = (e_w @ Ft).sum(1) + sum_err(L * m + 64) * (w_abs @ Ft).sum(1)
+    eq, rows = ("gni,gbnk->gbik", N) if F.dim() == 4 else ("gni,gbnk->bik", G * N)
+    dF = torch.einsum(eq, x64, w)
+    dF_b = torch.einsum(eq, xa, e_w) + sum_err(rows + 64) * torch.einsum(eq, xa, w_abs)
+    return (out, out_b), (dx, dx_b), (dF, dF_b)
+
+
+def tf32_flags():
+    """PyTorch's process-wide TF32 flags, as they read."""
+    import torch
+
+    mm = torch.backends.cuda.matmul
+    return {"allow_tf32": mm.allow_tf32, "float32_matmul_precision":
+            torch.get_float32_matmul_precision(),
+            "fp32_precision": getattr(mm, "fp32_precision", None)}
+
+
+# The cases of the first loss and gradients: the constructor's parameters
+# (fit_m200's own model) and every warp and data lengthscale set to 0.3 and
+# to 1.0 (the data lie on [0, 10]^2; the constructor's warp lengthscale is 10).
+PRECISION_CASES = ("init", 0.3, 1.0)
+# The loss is held to rel 1e-3 between the names in every case. A leaf's
+# gradient is held to rel 1e-2 (max-norm) wherever float32 resolves it: where
+# the card's float32 gradient at highest lies within FLOOR_HELD of the float64
+# one, a tenth of the limit. Where it does not, the float64 computation is
+# the only reference, and the gap of each name to it is recorded.
+LOSS_LIMIT, GRAD_LIMIT, FLOOR_HELD = 1e-3, 1e-2, 1e-3
+
+
+def first_loss_grads(model, spec, noise, device, dtype, S=5):
+    """One loss and its gradients of ``model``'s parameters under ``spec`` and
+    the injected draws ``noise``, on ``device`` in ``dtype`` (float64 on the
+    CPU: the plain versions): (loss, {leaf: gradient in float64 on the
+    CPU}). The model's own tensors are left as they were."""
+    import torch
+    from spatial_alignment_tpu_torch.models import core
+    from spatial_alignment_tpu_torch.models._trees import named_leaves, tree_map
+
+    move = lambda tree: tree_map(lambda t: t.detach().to(device, dtype)
+                                 if t.is_floating_point() else t.to(device), tree)
+    params = move(model.params)
+    for _, leaf in named_leaves(params):
+        leaf.requires_grad_(True)
+    wn = noise[0].to(device, dtype)
+    dn = {k: v.to(device, dtype) for k, v in noise[1].items()}
+    loss = core.negative_elbo(spec, params, move(model.consts), move(model._batch), S,
+                              warp_noise=wn, data_noise=dn)
+    loss.backward()
+    return float(loss.detach()), {k: v.grad.double().cpu() for k, v in named_leaves(params)}
+
+
+def precision_first_rows(name, model, reference=None, cases=PRECISION_CASES, hold=True,
+                         S=5, seed=13):
+    """The loss and gradients of ``model`` (names resolved to high/default)
+    against the same model with both names at ``highest``, at the same
+    parameters and injected draws, before it trains, and both against the
+    float64 computation on the CPU, in each of ``cases``. With ``hold``: the
+    loss within LOSS_LIMIT, and the gradient of each leaf whose highest
+    gradient lies within FLOOR_HELD of float64 within GRAD_LIMIT. The
+    parameters are put back after. ``reference`` holds the float64 results
+    of a model with the same parameters (the opt-in twin's are the default
+    model's: one function, other kernels), checked bit-equal before use;
+    returns (rows, reference)."""
+    import torch
+    from spatial_alignment_tpu_torch.models._trees import named_leaves
+
+    check((model.spec.svgp_matmul_precision, model.spec.svgp_variance_precision)
+          == ("high", "default"), f"{name}: names {model.spec.svgp_matmul_precision}, "
+                                  f"{model.spec.svgp_variance_precision}")
+    noise = injected_noise(model, S, seed)
+    names = ("warp_kernel_lengthscales", "data_kernel_lengthscale")
+    saved = {k: model.params[k].detach().clone() for k in names}
+    hi_spec = model.spec.replace(**HIGHEST)
+    rel = lambda a, b: {k: rel_err(a[k], b[k]) for k in b}
+    reference = {} if reference is None else reference
+    rows = {}
+    for case in cases:
+        with torch.no_grad():
+            for k in names:
+                model.params[k].copy_(saved[k] if case == "init"
+                                      else torch.full_like(saved[k], math.log(case)))
+        loss, grads = first_loss_grads(model, model.spec, noise, model.device, torch.float32, S)
+        loss_hi, grads_hi = first_loss_grads(model, hi_spec, noise, model.device,
+                                             torch.float32, S)
+        here = {k: v.detach().to("cpu", copy=True) for k, v in named_leaves(model.params)}
+        if case not in reference:
+            t0 = time.perf_counter()
+            reference[case] = (here, *first_loss_grads(model, hi_spec, noise, "cpu",
+                                                       torch.float64, S),
+                               time.perf_counter() - t0)
+        params64, loss64, grads64, seconds64 = reference[case]
+        check(all(bit_equal(here[k], params64[k]) for k in params64),
+              f"{name} ({case}): parameters differ from the float64 reference's")
+        grad_rel, floor = rel(grads, grads_hi), rel(grads_hi, grads64)
+        held = sorted(k for k in floor if floor[k] <= FLOOR_HELD)
+        loss_rel = abs(loss - loss_hi) / abs(loss_hi)
+        if hold:
+            check(loss_rel <= LOSS_LIMIT,
+                  f"{name} ({case}): default vs highest loss rel {loss_rel}")
+            check(all(grad_rel[k] <= GRAD_LIMIT for k in held),
+                  f"{name} ({case}): default vs highest gradient rel {grad_rel} "
+                  f"on the leaves float32 resolves ({held}; highest vs float64 {floor})")
+        worst = max(held, key=grad_rel.get) if held else None
+        rows[str(case)] = {
+            "loss": loss, "loss_highest": loss_hi, "loss_float64": loss64,
+            "loss_rel": loss_rel, "grad_rel": grad_rel, "highest_vs_float64": floor,
+            "default_vs_float64": rel(grads, grads64), "held_leaves": held,
+            "grad_rel_max_held": grad_rel[worst] if held else None,
+            "grad_rel_max_held_leaf": worst, "float64_seconds": seconds64}
+    with torch.no_grad():
+        for k, v in saved.items():
+            model.params[k].copy_(v)
+    return rows, reference
+
+
+def tensor_core_gemm(name: str) -> bool:
+    """Whether a cuBLAS float32 GEMM kernel runs on the tensor cores (TF32):
+    its name says tf32 (``sm90_xmma_gemm_f32f32_tf32f32_f32...``) or is a
+    CUTLASS tensor-op kernel (``cutlass_80_tensorop_s1688gemm...``: m16n8k8
+    TF32 mma); fp32 ones are ``..._ffma_...`` or ``cutlass_80_simt_sgemm``."""
+    name = name.lower()
+    return "tf32" in name or "tensorop" in name
+
+
+def gemm_census(model, steps=2):
+    """The GEMM kernels of ``steps`` replays of ``model``'s captured fit step
+    by the profiler: {name: (device ms a step, launches a step)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import torch
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.fit(n_epochs=steps, lr=1e-2, S=5)
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "gemm" in e.key.lower()}
+
+
+def largest_gemms(census, n=3):
+    """The kernel names of the ``n`` GEMM launches of a step with the most
+    device time (a name counted once a launch, by its mean time)."""
+    out = []
+    for name, (ms, count) in sorted(census.items(), key=lambda kv: -kv[1][0] / kv[1][1]):
+        out += [name] * int(round(count))
+    return out[:n]
+
+
+def phase_precision(first_rows, fits, models, flags_before, vi200, X200):
+    """What the names compute on the card at fit_m200's model: the first
+    loss and gradients against the highest twin (``first_rows``, default
+    and opt-in routes), each route's 200-step fit beside its twin's (aligned
+    error, both held below the data's; captured step ms, in turns after the
+    fits; ``models`` holds the four by name), the GEMMs of a captured step by the
+    profiler (the default route's variance products in TF32 kernels, none in
+    the twin's), and PyTorch's TF32 flags as they were before the fits."""
+    census = {name: gemm_census(models[name]) for name in ("fit_m200", "fit_m200_highest")}
+    tf32 = {name: {k: v for k, v in c.items() if tensor_core_gemm(k)} for name, c in census.items()}
+    per_step = {name: sum(n for _, n in t.values()) for name, t in tf32.items()}
+    largest = {name: largest_gemms(c) for name, c in census.items()}
+    # The three large products of a step (the data layer's t and both of its
+    # backward products) run TF32 kernels at default and fp32 ones at highest;
+    # no product of the twin runs on the tensor cores.
+    check(all(tensor_core_gemm(k) for k in largest["fit_m200"])
+          and not any(tensor_core_gemm(k) for k in largest["fit_m200_highest"])
+          and per_step["fit_m200"] >= 3 and per_step["fit_m200_highest"] == 0,
+          f"precision: largest GEMMs {largest}; tensor-core GEMM launches a step {per_step}")
+    top = lambda c: sorted(c.items(), key=lambda kv: -kv[1][0])[:5]
+    flags_after = tf32_flags()
+    check(flags_after == flags_before, f"precision: TF32 flags {flags_before} -> {flags_after}")
+    routes = {}
+    for name in ("fit_m200", "fit_m200_pallas"):
+        fit, twin_ = fits[name], fits[name + "_highest"]
+        err_data = aligned_error(X200, vi200)
+        for n_, f in ((name, fit), (name + "_highest", twin_)):
+            check(bool(f["aligned_error"] < err_data),
+                  f"{n_}: aligned error {err_data} -> {f['aligned_error']}")
+        # Captured steps after the fits, in turns (A B B A), 100 steps each.
+        ms = {n_: [] for n_ in (name, name + "_highest")}
+        for n_ in (name, name + "_highest", name + "_highest", name):
+            ms[n_].append(fit_step_ms(models[n_], 100, lr=1e-2, S=5))
+        step_ms = {n_: sum(v) / len(v) for n_, v in ms.items()}
+        routes[name] = {"step_ms": step_ms[name], "step_ms_highest": step_ms[name + "_highest"],
+                        "step_ms_runs": ms, "speedup": step_ms[name + "_highest"] / step_ms[name],
+                        "fit_steps_per_s_with_capture": fit["steps_per_s"],
+                        "fit_steps_per_s_with_capture_highest": twin_["steps_per_s"],
+                        "aligned_error": fit["aligned_error"],
+                        "aligned_error_highest": twin_["aligned_error"],
+                        "aligned_error_data": err_data,
+                        "loss_last50": float(fit["losses"][-50:].mean()),
+                        "loss_last50_highest": float(twin_["losses"][-50:].mean())}
+    emit("precision", first=first_rows, routes=routes, flags_before=flags_before,
+         flags_after=flags_after, tf32_gemm_launches_per_step=per_step,
+         largest_gemms=largest,
+         gemm_ms_per_step={name: sum(t for t, _ in c.values()) for name, c in census.items()},
+         top_gemms={name: [(k, t, n) for k, (t, n) in top(c)] for name, c in census.items()})
+
+
+def phase_kernels_precision(captured, peaks, phase="kernels_precision"):
+    """The quad kernels' one-pass TF32 build (``default``) on the inputs the
+    opt-in fits hand them at that name (``captured``: (key, stride0, args)
+    with the name last): against float64 within :func:`error_bounds`
+    (operands rounded to TF32, 2^-11 each: about 2^-10 a product, float32
+    sums), against the plain version at ``default`` (cuBLAS TF32, which may
+    truncate: 2^-10 an operand) within the sum of both bounds, two launches
+    bit-equal; times of the kernel, of the 3xTF32 build, of the plain
+    version at default, of one cuBLAS TF32 call making t (forward), beside
+    the one-pass bound (the products once at the TF32 peak)."""
+    import torch
+    from spatial_alignment_tpu_torch.ops import precision, quad
+
+    rows = {"quad_fwd": [], "quad_bwd": []}
+    seen = set()
+    for key, _, args in captured:
+        if key not in rows or args[-1] != "default":
+            continue
+        sig = (key,) + tuple(tuple(a.shape) for a in args[:-1])
+        if sig in seen:
+            continue
+        seen.add(sig)
+        x, F = args[0], args[1]
+        G, N, m = x.shape
+        Lc = F.shape[-3]
+        dy = args[2] if key == "quad_bwd" else torch.randn(
+            (G, Lc, N), generator=torch.Generator(device="cuda").manual_seed(4), device="cuda")
+        bounds = error_bounds(x, F, dy, "tf32")
+        bounds_p = error_bounds(x, F, dy, "tf32_truncated")
+        if key == "quad_fwd":
+            run = lambda: (quad.quad_fwd_kernel(x, F, "default"),)
+            plain = (quad.quad_diag_plain(x, F, "default"),)
+            bounds, bounds_p = bounds[:1], bounds_p[:1]
+            products = 1
+        else:
+            run = lambda: quad.quad_bwd_kernel(x, F, dy, "default")
+            plain = quad.quad_bwd_plain(x, F, dy, "default")
+            bounds, bounds_p = bounds[1:], bounds_p[1:]
+            products = 3
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        ratio_f64, ratio_plain, max_abs = [], [], []
+        for k, a, p, (exact, b), (_, bp) in zip(got, again, plain, bounds, bounds_p):
+            check(bool(torch.isfinite(k).all()), f"{phase} {key} {tuple(x.shape)}: non-finite")
+            check(bit_equal(k, a), f"{phase} {key} {tuple(x.shape)}: two launches differ")
+            ratio_f64.append(float(((k.double() - exact).abs() / b).max()))
+            ratio_plain.append(float(((k.double() - p.double()).abs() / (b + bp)).max()))
+            max_abs.append(float((k - p).abs().max()))
+        check(max(ratio_f64) <= 1.0 and max(ratio_plain) <= 1.0,
+              f"{phase} {key} {tuple(x.shape)}: error / bound vs float64 {ratio_f64}, "
+              f"vs plain {ratio_plain}")
+        rels = [rel_err(k.double(), exact) for k, (exact, _) in zip(got, bounds)]
+        del bounds, bounds_p
+        torch.cuda.empty_cache()
+        n_bytes = 4 * (x.numel() + F.numel() + (G * Lc * N if key == "quad_fwd"
+                                                 else dy.numel() + x.numel() + F.numel()))
+        b1, by = bound_ms(n_bytes, products * 2 * G * N * Lc * m * m, peaks, peaks[2])
+        b3, _ = bound_ms(n_bytes, 3 * products * 2 * G * N * Lc * m * m, peaks, peaks[2])
+        n = 20 if key == "quad_fwd" else 30
+        row = {"x": list(x.shape), "F": list(F.shape), "products": "1xTF32 mma.sync m16n8k8",
+               "error_over_bound_vs_float64": ratio_f64,
+               "error_over_bound_vs_plain": ratio_plain, "rel_vs_float64": rels,
+               "max_abs_err": max(max_abs), "bit_equal_twice": True,
+               "kernel_ms": median_ms(lambda: run(), n=n),
+               "kernel_3xtf32_ms": median_ms(
+                   (lambda: quad.quad_fwd_kernel(x, F)) if key == "quad_fwd"
+                   else (lambda: quad.quad_bwd_kernel(x, F, dy)), n=n),
+               "plain_ms": median_ms(
+                   (lambda: quad.quad_diag_plain(x, F, "default")) if key == "quad_fwd"
+                   else (lambda: quad.quad_bwd_plain(x, F, dy, "default")), n=n),
+               "library_ms": (median_ms(lambda: precision.matmul(x.unsqueeze(1), F, "default"))
+                              if key == "quad_fwd" else None),
+               "library": ("torch.matmul in cuBLAS TF32 producing t only"
+                           if key == "quad_fwd" else None),
+               "bound_ms": b1, "bound_by": by, "bound_3xtf32_ms": b3}
+        if key == "quad_bwd":
+            row["design"] = quad.bwd_design(G, N, m, Lc, G if F.dim() == 4 else 1, "default")
+        rows[key].append(row)
+    check(rows["quad_fwd"] and rows["quad_bwd"], f"{phase}: no quad inputs at default")
+    emit(phase, **rows)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# WarpGPMLE at the reference experiment's configuration
+# (experiments/simulations/two_dimensional_mle.py: two views of an 8 x 8
+# grid, 10 outputs, fixed warp variances 0.01 and lengthscales 10, view 0
+# fixed, 2,000 epochs of Adam at lr 1e-2), then at a 16 x 16 grid (512
+# points: the data Gram's Cholesky in the panel design).
+# ---------------------------------------------------------------------------
+
+MLE_RECORD = {"pre": 0.06638024473850464, "post_mle": 0.005463987588882446,
+              "source": "experiments/out/mle_vs_variational.json (the JAX package)"}
+# Cholesky launches a step: the warp slab (V, N_pad, N_pad) and the data
+# matrix (N_total, N_total), each after its jitter probe (one launch: from
+# m = 64 the probe's two rungs are stacked).
+MLE_CHOLESKY_PER_STEP = 4
+
+
+def mle_run(device, grid_size, n_epochs, hold):
+    """One WarpGPMLE fit at ``grid_size``: finite losses, the Cholesky
+    kernel's launches a step, no plain call, a captured step and the fixed
+    view's G bit for bit its coords; with ``hold`` also falling losses and
+    an aligned error below the data's. Returns (row, the Grams one loss
+    hands the Cholesky)."""
+    import numpy as np
+    import torch
+    from spatial_alignment_tpu_torch import WarpGPMLE
+    from spatial_alignment_tpu_torch.data import generate_twod_data
+
+    X, Y, nsl, vi = generate_twod_data(
+        2, 10, grid_size=grid_size, n_latent_gps=None, kernel_variance=0.1,
+        kernel_lengthscale=5.0, noise_variance=1e-3, fixed_view_idx=0,
+        rng=np.random.default_rng(0))
+    X, Y = X.astype(np.float32), Y.astype(np.float32)
+    dd = {"expression": {"spatial_coords": X, "outputs": Y, "n_samples_list": nsl}}
+    model = WarpGPMLE(dd, fixed_warp_kernel_variances=np.ones(2) * 0.01,
+                      fixed_warp_kernel_lengthscales=np.ones(2) * 10.0, fixed_view_idx=0,
+                      seed=0, device=device)
+    inputs = capture_cholesky_inputs(lambda: model.loss_fn())
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = model.fit(n_epochs=n_epochs, lr=1e-2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain = read_counts()
+    name = f"mle_grid{grid_size}"
+    check(bool(np.isfinite(losses).all()), f"{name}: non-finite loss")
+    window = min(50, n_epochs // 4)
+    first, last = float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
+    check(not hold or last < first, f"{name}: loss did not fall ({first} -> {last})")
+    check(launches["cholesky"] == MLE_CHOLESKY_PER_STEP * n_epochs
+          and not any(v for k, v in launches.items() if k != "cholesky")
+          and not any(plain.values()),
+          f"{name}: launches {launches} for {n_epochs} steps, plain {plain}")
+    check(model._loop.graph is not None, f"{name}: fit() did not capture its step")
+    G = model.G["expression"]
+    check(np.array_equal(G[vi[0]], X[vi[0]]), f"{name}: the fixed view moved")
+    pre, post = aligned_error(X, vi), aligned_error(G, vi)
+    check(not hold or post < pre, f"{name}: aligned error {pre} -> {post}")
+    return {"points": int(X.shape[0]), "steps": n_epochs, "seconds": dt,
+            "steps_per_s": n_epochs / dt, "captured": True,
+            "cholesky_launches_per_step": launches["cholesky"] / n_epochs,
+            "cholesky_shapes": [list(a.shape) for a in inputs],
+            "loss_first": float(losses[0]), "loss_first50": first, "loss_last50": last,
+            "loss_final": float(losses[-1]), "fixed_view_bit_equal": True,
+            "aligned_error_data": pre, "aligned_error_fit": post}, inputs
+
+
+def phase_mle(device, peaks):
+    """WarpGPMLE through its entry points at the reference experiment's
+    size (held: falling losses, aligned error below the data's), then 200
+    steps at 512 points (timed; its alignment is reported, not held: 200
+    steps are a tenth of the reference's length), and the Cholesky kernel
+    at the shapes both hand it (their real Grams, captured from one loss)."""
+    ref, inputs = mle_run(device, 8, 2000, hold=True)
+    big, inputs_big = mle_run(device, 16, 200, hold=False)
+    record, _, _ = phase_kernels(device, inputs + inputs_big, peaks, extras=False)
+    emit("mle", reference_config=ref, grid16=big, jax_record=MLE_RECORD,
+         cholesky=record)
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", type=Path,
@@ -2388,6 +2832,7 @@ def main() -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          peak_bytes_per_s=peaks[0], peak_fp32_flops=peaks[1], peak_tf32_flops=peaks[2])
 
+    flags_before = tf32_flags()
     from spatial_alignment_tpu_torch import VariationalGPSA
     from spatial_alignment_tpu_torch.ops import _build
 
@@ -2437,6 +2882,11 @@ def main() -> int:
     kw200 = dict(m_X_per_view=200, m_G=200, n_latent_gps={"expression": 10}, fixed_view_idx=0,
                  mean_function="identity_fixed", device=device)
     model = VariationalGPSA(dd200, **kw200)
+    # Its twin with both precision names at highest (fp32 in cuBLAS,
+    # 3xTF32 in the quad kernels): the same data, seed and parameters.
+    model_hi = VariationalGPSA(dd200, **kw200, **HIGHEST)
+    first_rows, float64_first = {}, None
+    first_rows["fit_m200"], float64_first = precision_first_rows("fit_m200", model)
     # The Cholesky's inputs on both main paths: one loss of the m = 200 model
     # from its generator (as its first step, and as its opt-in twin's capture
     # below), and one minibatch loss of the 100k model from a generator of
@@ -2476,6 +2926,10 @@ def main() -> int:
     # the model's generator as the default model's capture does, so the
     # first training step of each pair sees the same noise.
     model_p = VariationalGPSA(dd200, **kw200, **OPT_INS)
+    model_p_hi = VariationalGPSA(dd200, **kw200, **OPT_INS, **HIGHEST)
+    first_rows["fit_m200_pallas"], _ = precision_first_rows("fit_m200_pallas", model_p,
+                                                            float64_first)
+    del float64_first
     model50_p = VariationalGPSA(dd50, **kw50, **OPT_INS)
     model384_p = VariationalGPSA(dd200, **kw384, **OPT_INS)
     captured384 = capture_kernel_inputs(model384_p)
@@ -2489,6 +2943,7 @@ def main() -> int:
     captured = (capture_kernel_inputs(model_p) + capture_kernel_inputs(model50_p)
                 + captured384)
     new_record = phase_new_kernels(device, captured, peaks)
+    prec_record = phase_kernels_precision(captured, peaks)
     # The Gram kernel's inputs: one minibatch loss and gradient of each
     # forced 100k model (indices and noise from a generator of their own)
     # and predict() over all 100,000 spots before training.
@@ -2527,6 +2982,18 @@ def main() -> int:
     first_rel = abs(fit200_p["losses"][0] - fit200["losses"][0]) / abs(fit200["losses"][0])
     check(first_rel <= 1e-3, f"fit_m200_pallas: first loss rel {first_rel} vs fit_m200")
     emit("fit_m200_pallas_vs_fit_m200", first_loss_rel=first_rel)
+    # The twins at highest: the same 200 steps, then the precision phase.
+    fits_prec = {"fit_m200": fit200, "fit_m200_pallas": fit200_p}
+    for name_, mdl, per_step in (("fit_m200_highest", model_hi, DEFAULT_PER_STEP),
+                                 ("fit_m200_pallas_highest", model_p_hi, OPTIN_PER_STEP)):
+        fits_prec[name_] = phase_fit(name_, mdl, 200, 5, "mixed", per_step)
+        fits_prec[name_]["aligned_error"] = aligned_error(
+            mdl.predict({"expression": X200})[0]["expression"], vi200)
+    phase_precision(first_rows, fits_prec,
+                    {"fit_m200": model, "fit_m200_highest": model_hi,
+                     "fit_m200_pallas": model_p, "fit_m200_pallas_highest": model_p_hi},
+                    flags_before, vi200, X200)
+    del model_hi, model_p_hi, fits_prec
     phase_fit("fit_m50_pallas", model50_p, 100, 5, "kl_inverse", OPTIN_PER_STEP)
     # m = 384: the panel designs of the Cholesky (both routes) and the fused
     # factor (opt-in route); the pair starts from the same parameters and
@@ -2695,6 +3162,7 @@ def main() -> int:
          **{name_: v[2] for name_, v in variational.items()}},
         predict_mb100k, (model_mb, 1e-2, 5, None, MB_B))
     phase_resume(model)
+    phase_mle(device, peaks)
 
     # fit_multistart, after every fit_* phase (its single-restart runs
     # overwrite the m = 200 models' parameters): the harness at m = 50, the
@@ -2723,6 +3191,7 @@ def main() -> int:
     emit("kernels_folded", cholesky=folded_chol,
          **phase_new_kernels(device, list(new.values()), peaks, extras=False),
          **phase_gram(device, list(grams.values()), peaks))
+    phase_kernels_precision(list(new.values()), peaks, "kernels_precision_folded")
     phase_memory_after_multistart(
         {"multistart_m50": (model_ms50, MS_M50["n_restarts"], None, True),
          "multistart_m200": (model_ms, MS_R, None, False),
@@ -2768,14 +3237,15 @@ def main() -> int:
 
     # Each kernel at the largest shape of its m = 200 path: the data layer's
     # solve (L (200, 200), B (200, 10)) and quad-diag (x (5, 4050, 200),
-    # shared F (10, 200, 200)), the (14, 200, 200) factor slab; the Gram at
-    # the 100k fit's data layer (x1 (100, 2), x2 (5, 8192, 2)). Launches are
-    # the counts of the path's 200-step fit: fit_m200 for the Cholesky,
+    # shared F (10, 200, 200), in the one-pass TF32 build the path's
+    # "default" runs), the (14, 200, 200) factor slab; the Gram at the 100k
+    # fit's data layer (x1 (100, 2), x2 (5, 8192, 2)). Launches are the
+    # counts of the path's 200-step fit: fit_m200 for the Cholesky,
     # fit_m200_pallas for the next four, fit_mb100k_gram for the Gram.
     solve = next(r for r in new_record["trisolve"] if r["B"] == [200, 10] and not r["trans"])
-    qf = max((r for r in new_record["quad_fwd"] if r["x"][-1] == 200),
+    qf = max((r for r in prec_record["quad_fwd"] if r["x"][-1] == 200),
              key=lambda r: math.prod(r["x"]))
-    qb = max((r for r in new_record["quad_bwd"] if r["x"][-1] == 200),
+    qb = max((r for r in prec_record["quad_bwd"] if r["x"][-1] == 200),
              key=lambda r: math.prod(r["x"]))
     fac = next(r for r in new_record["factor"] if r["shape"] == [14, 200, 200])
     gr = next(r for r in gram_record["gram"] if r["x2"] == [5, 2 * MB_B, 2] and r["kind"] == "rbf")
@@ -2787,9 +3257,9 @@ def main() -> int:
         entry("trisolve", launches_p["trisolve"], solve, solve["real"]["max_abs_err"],
               {"L": [200, 200], "B": [200, 10]}),
         entry("quad_fwd", launches_p["quad_fwd"], qf, qf["max_abs_err"],
-              {"x": qf["x"], "F": qf["F"]}),
+              {"x": qf["x"], "F": qf["F"], "precision": "default"}),
         entry("quad_bwd", launches_p["quad_bwd"], qb, qb["max_abs_err"],
-              {"x": qb["x"], "F": qb["F"]}),
+              {"x": qb["x"], "F": qb["F"], "precision": "default"}),
         entry("factor", launches_p["factor"], fac, fac["real"]["max_abs_err"], [14, 200, 200]),
         entry("gram", fit_mb_g["launches"]["gram"], gr, gr["real"]["max_abs_err"],
               {"x1": gr["x1"], "x2": gr["x2"], "kind": gr["kind"]}),

@@ -122,8 +122,29 @@
 // for every (channel, column block), 1.1 GB at the data layer, or float
 // atomics. So t is made twice, 4 products instead of 3.
 //
+// Precision. The TPU kernels take the library's precision names
+// (pallas_quad.py:_dot_prec, 116-143): "highest" f32, "high" a 3-pass bf16
+// split, "default" one bf16 pass. This file is built twice, and the wrapper
+// (ops/quad.py) picks the build by name:
+//   libquad       (SAT_QUAD_TF32_PASSES 3) for "high" and "highest": every
+//                 product in 3xTF32 as above, within about 2^-21 of a
+//                 product, better than the TPU's bf16_3x (about 2^-16);
+//   libquad_tf32  (SAT_QUAD_TF32_PASSES 1) for "default": each operand
+//                 rounded to TF32 once (cvt.rna, 10 mantissa bits: within
+//                 2^-11 of it), one mma.sync a tile where 3xTF32 issues
+//                 three, so each product is within about 2^-10 of the exact
+//                 one and the sums are fp32 (cuBLAS's TF32 mode, JAX's GPU
+//                 meaning of DEFAULT; the TPU's one bf16 pass keeps 7 bits).
+//                 In the backward, t and w = 2 dy t are made in fp32 and
+//                 rounded the same way as the second product's operand.
+// The tiles, the cluster split, the backward's designs and the order of
+// every sum are the same in both builds; only the mma passes differ. The
+// 1-pass forward does a third of the 3xTF32 products (0.033 ms at the TF32
+// peak at the data layer of the m = 200 fit, where 3xTF32 takes 0.10).
+//
 // Above m = 512 the accumulator and the resident tile outgrow a block, and
-// the first design runs (the wide variant, off every path the repo runs):
+// the first design runs (the wide variant, off every path the repo runs,
+// in fp32 tiles in both builds):
 // 64 x 64 tiles of t on the plain fp32 pipes, 256 threads with a 4 x 4
 // register tile each, x and F staged 16 deep,
 //   quad_dx_kernel    grid (N/64, G): dx for the block's points over 256
@@ -138,7 +159,16 @@
 
 #include "common.cuh"
 
+// 3: the 3xTF32 build (libquad); 1: the one-pass TF32 build (libquad_tf32).
+#ifndef SAT_QUAD_TF32_PASSES
+#define SAT_QUAD_TF32_PASSES 3
+#endif
+static_assert(SAT_QUAD_TF32_PASSES == 1 || SAT_QUAD_TF32_PASSES == 3,
+              "SAT_QUAD_TF32_PASSES is 1 or 3");
+
 namespace {
+
+constexpr bool kOnePass = SAT_QUAD_TF32_PASSES == 1;
 
 namespace cg = cooperative_groups;
 
@@ -259,6 +289,22 @@ __device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) 
   lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
+// v rounded to TF32 (nearest, ties away from zero), as the tensor core's operand.
+__device__ __forceinline__ unsigned round_tf32(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v as a tensor-core operand: its TF32 high and low parts (3xTF32), or in
+// the one-pass build v rounded to TF32 in hi (lo is left unset and unread).
+__device__ __forceinline__ void tf32_operand(float v, unsigned& hi, unsigned& lo) {
+  if constexpr (kOnePass)
+    hi = round_tf32(v);
+  else
+    split_tf32(v, hi, lo);
+}
+
 // c += a b on one 16 x 8 x 8 TF32 tile, fp32 accumulate.
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
                                          const unsigned (&b)[2]) {
@@ -357,8 +403,8 @@ __device__ __forceinline__ void fwd_frags(const float* st, int kk, int wm, int w
 // column tiles: steps and tiles wholly past m are skipped. FULL (every step
 // and tile) has no condition around an mma: a predicated mma.sync costs a
 // warp re-convergence each. Each product is three mma (lo hi, hi lo,
-// hi hi), issued pass by pass so that consecutive mma of a warp never wait
-// on each other; the next step's fragments are read from shared memory
+// hi hi; only hi hi in the one-pass build), issued pass by pass so that
+// consecutive mma of a warp never wait on each other; the next step's fragments are read from shared memory
 // before this step's mma are issued.
 template <class T, bool XT, bool FULL>
 __device__ __forceinline__ void fwd_mma_stage(const float* st, float (&acc)[T::MT][T::NT][4],
@@ -376,24 +422,26 @@ __device__ __forceinline__ void fwd_mma_stage(const float* st, float (&acc)[T::M
 #pragma unroll
     for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(ra[mt][e], ahi[mt][e], alo[mt][e]);
+      for (int e = 0; e < 4; ++e) tf32_operand(ra[mt][e], ahi[mt][e], alo[mt][e]);
 #pragma unroll
     for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) split_tf32(rb[nt][e], bhi[nt][e], blo[nt][e]);
+      for (int e = 0; e < 2; ++e) tf32_operand(rb[nt][e], bhi[nt][e], blo[nt][e]);
     if (kk + 8 < FK)
       fwd_frags<T, XT>(st, kk + 8, wm, wn, gid, tig, shift(kk + 8 + tig), shift(kk + 12 + tig),
                        ra, rb);
+    if constexpr (!kOnePass) {
 #pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt)
+      for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt)
-        if (FULL || nt < ntiles) mma_tf32(acc[mt][nt], alo[mt], bhi[nt]);
+        for (int nt = 0; nt < T::NT; ++nt)
+          if (FULL || nt < ntiles) mma_tf32(acc[mt][nt], alo[mt], bhi[nt]);
 #pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt)
+      for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt)
-        if (FULL || nt < ntiles) mma_tf32(acc[mt][nt], ahi[mt], blo[nt]);
+        for (int nt = 0; nt < T::NT; ++nt)
+          if (FULL || nt < ntiles) mma_tf32(acc[mt][nt], ahi[mt], blo[nt]);
+    }
 #pragma unroll
     for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
@@ -733,10 +781,11 @@ struct Bwd {
 // between two that depend on each other.
 constexpr int kGroup = 4;
 
-// w's TF32 parts of one tile of t as an A fragment, from the 4 values w.
+// w's TF32 parts of one tile of t as an A fragment, from the 4 values w
+// (hi alone, rounded, in the one-pass build).
 __device__ __forceinline__ void split4(const float (&w)[4], unsigned (&hi)[4], unsigned (&lo)[4]) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) split_tf32(w[e], hi[e], lo[e]);
+  for (int e = 0; e < 4; ++e) tf32_operand(w[e], hi[e], lo[e]);
 }
 
 // One chunk for the warp `h` of row group `rg`: s = A . B over depth m8 for
@@ -793,17 +842,19 @@ __device__ __forceinline__ void bwd_chunk(const float* As, const float* Bs, cons
     }
     unsigned ahi[4], alo[4], bhi[TW][2], blo[TW][2];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) split_tf32(a[e], ahi[e], alo[e]);
+    for (int e = 0; e < 4; ++e) tf32_operand(a[e], ahi[e], alo[e]);
 #pragma unroll
     for (int q = 0; q < TW; ++q)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) split_tf32(b[q][e], bhi[q][e], blo[q][e]);
+      for (int e = 0; e < 2; ++e) tf32_operand(b[q][e], bhi[q][e], blo[q][e]);
+    if constexpr (!kOnePass) {
 #pragma unroll
-    for (int q = 0; q < TW; ++q)
-      if (FULL || t0 + q < nv) mma_tf32(sa[q], alo, bhi[q]);
+      for (int q = 0; q < TW; ++q)
+        if (FULL || t0 + q < nv) mma_tf32(sa[q], alo, bhi[q]);
 #pragma unroll
-    for (int q = 0; q < TW; ++q)
-      if (FULL || t0 + q < nv) mma_tf32(sa[q], ahi, blo[q]);
+      for (int q = 0; q < TW; ++q)
+        if (FULL || t0 + q < nv) mma_tf32(sa[q], ahi, blo[q]);
+    }
 #pragma unroll
     for (int q = 0; q < TW; ++q)
       if (FULL || t0 + q < nv) mma_tf32(sa[q], ahi, bhi[q]);
@@ -893,16 +944,18 @@ __device__ __forceinline__ void bwd_chunk(const float* As, const float* Bs, cons
             v0 = v.x;
             v1 = v.y;
           }
-          split_tf32(v0, bh[q][0], bl[q][0]);
-          split_tf32(v1, bh[q][1], bl[q][1]);
+          tf32_operand(v0, bh[q][0], bl[q][0]);
+          tf32_operand(v1, bh[q][1], bl[q][1]);
         }
       }
+      if constexpr (!kOnePass) {
 #pragma unroll
-      for (int q = 0; q < kGroup; ++q)
-        if (n0 + q < NW) mma_tf32(acc[n0 + q], wlo[j], bh[q]);
+        for (int q = 0; q < kGroup; ++q)
+          if (n0 + q < NW) mma_tf32(acc[n0 + q], wlo[j], bh[q]);
 #pragma unroll
-      for (int q = 0; q < kGroup; ++q)
-        if (n0 + q < NW) mma_tf32(acc[n0 + q], whi[j], bl[q]);
+        for (int q = 0; q < kGroup; ++q)
+          if (n0 + q < NW) mma_tf32(acc[n0 + q], whi[j], bl[q]);
+      }
 #pragma unroll
       for (int q = 0; q < kGroup; ++q)
         if (n0 + q < NW) mma_tf32(acc[n0 + q], whi[j], bh[q]);
@@ -1334,6 +1387,9 @@ int launch_bwd_wide(const BwdPlan& p, const float* x, const float* F, long long 
 }  // namespace
 
 extern "C" {
+
+// TF32 passes a product of this build (3, or 1 for "default").
+int sat_quad_tf32_passes() { return SAT_QUAD_TF32_PASSES; }
 
 // The forward's design at these sizes: the rows and the columns of t in
 // its block tile, and the blocks of its cluster (splits of the columns).

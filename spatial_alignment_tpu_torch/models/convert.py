@@ -2,7 +2,10 @@
 
 ``params_from_numpy`` turns the JAX package's parameter and constant trees
 (nested dicts of numpy arrays, e.g. ``jax.tree.map(np.asarray,
-model.params)``) into the port's tensors. ``load_jax_checkpoint`` rebuilds a
+model.params)``) into the port's tensors; ``params_into`` writes such trees
+into a port model's own tensors in place, for a ``VariationalGPSA`` or a
+``WarpGPMLE`` (whose params carry the aligned coordinates ``G``) built on
+the same data. ``load_jax_checkpoint`` rebuilds a
 port ``VariationalGPSA`` from a self-contained checkpoint written by the JAX
 package's ``save()`` (an ``.npz`` with ``params/``, ``consts/`` and
 ``data/`` sections and a ``.json`` manifest holding the spec), read through
@@ -23,7 +26,7 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["params_from_numpy", "load_jax_checkpoint", "tensors_from_numpy"]
+__all__ = ["params_from_numpy", "params_into", "load_jax_checkpoint", "tensors_from_numpy"]
 
 
 def tensors_from_numpy(tree, device):
@@ -37,6 +40,24 @@ def params_from_numpy(params: dict, consts: dict, device=None) -> Tuple[dict, di
     """(params, consts) as float32 tensors on ``device`` (None = "cuda")."""
     dev = resolve_device(device)
     return tensors_from_numpy(params, dev), tensors_from_numpy(consts, dev)
+
+
+def params_into(model, params: dict, consts: dict) -> None:
+    """Write the JAX package's (params, consts) trees into ``model``'s
+    tensors in place, leaf by leaf path. The trees must hold the model's
+    leaves with their shapes (a JAX model of the same class built on the
+    same data and options)."""
+    from ._trees import named_leaves
+
+    for name, mine, theirs in (("params", model.params, params), ("consts", model.consts, consts)):
+        got = dict(named_leaves(tensors_from_numpy(theirs, "cpu")))
+        want = dict(named_leaves(mine))
+        shapes = lambda d: sorted((k, tuple(t.shape)) for k, t in d.items())
+        if shapes(got) != shapes(want):
+            raise ValueError(f"{name}: {shapes(got)} does not match the model's {shapes(want)}")
+        with torch.no_grad():
+            for path, dst in want.items():
+                dst.copy_(got[path])
 
 
 def load_jax_checkpoint(path: str, device=None):

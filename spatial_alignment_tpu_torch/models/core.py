@@ -19,6 +19,17 @@ Kernel opt-ins: ``spec.cholesky_impl``, ``spec.quad_diag_impl`` and
 cross-Grams of the warp and data layers go through :func:`..ops.gram.gram`,
 which takes the Gram kernel under ``set_gram_force(True)``.
 
+Precision names: ``spec.svgp_matmul_precision`` and
+``spec.svgp_variance_precision`` reach ``svgp_mean_var`` from every caller,
+as in the JAX package (its ``core.py:204-268``): the variance's products
+(the quad-diag and, in the solve modes, ``alphaT @ Kuu_chol``) at the
+variance name, the mean's at the matmul name, through
+:func:`..ops.precision.matmul` (``default`` is one cuBLAS TF32 pass on the
+card, in both directions), and the products JAX pins to ``highest`` at
+``highest`` through the same primitive: on the card every one of them runs
+in its name's mode whatever PyTorch's process-wide TF32 setting reads when
+it is formed.
+
 Monte-Carlo noise: ``warp_layer``, ``data_layer``, ``impute_at``,
 ``forward``, ``negative_elbo`` and ``negative_elbo_minibatch`` take the
 standard-normal draws (and the last the subsample's indices) as optional
@@ -50,6 +61,7 @@ from ..ops.linalg import (
     tri_inverse,
     tri_solve,
 )
+from ..ops.precision import matmul
 from .spec import ModelSpec, check_supported
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -93,15 +105,17 @@ class ForwardResult(NamedTuple):
 
 
 def _quad_diag(
-    xT: torch.Tensor, factors: torch.Tensor, impl: Optional[str] = None
+    xT: torch.Tensor, factors: torch.Tensor, impl: Optional[str] = None,
+    precision: str = "highest",
 ) -> torch.Tensor:
-    """Per-point quadratic-form diagonals sum_k (xT @ factors)^2 -> (..., B, N).
+    """Per-point quadratic-form diagonals sum_k (xT @ factors)^2 -> (..., B, N),
+    the product at ``precision``.
 
     xT (..., N, m); factors (B, m, m) or (..., B, m, m) per output-channel
     factors. ``impl="pallas"`` takes the kernels of :mod:`..ops.quad`."""
     if impl == "pallas":
-        return quad.quad_diag(xT, factors)
-    return quad.quad_diag_plain(xT, factors)
+        return quad.quad_diag(xT, factors, precision)
+    return quad.quad_diag_plain(xT, factors, precision)
 
 
 def svgp_mean_var(
@@ -118,6 +132,8 @@ def svgp_mean_var(
     impl: Optional[str] = None,
     quad_impl: Optional[str] = None,
     whitened: bool = False,
+    matmul_precision: str = "highest",
+    variance_precision: str = "follow",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SVGP marginal posterior at the Kuf columns.
 
@@ -132,47 +148,61 @@ def svgp_mean_var(
     quadratic form runs on B^T and Omega_tril, for B = L^-1 Kuf: one
     width-N triangular solve (``Linv @ Kuf`` under "inverse"), whose column
     norms are also diag(Kfu Kuu^-1 Kuf); ``mu_z`` is unused.
+
+    ``matmul_precision`` sets the mean's products and ``variance_precision``
+    (``follow``: the matmul name) the variance's, as ``ModelSpec``'s
+    ``svgp_*_precision`` (:mod:`..ops.precision`); ``Linv @ Kuf``, ``C_om``,
+    ``alphaT`` and the whitened ``B_w`` run at ``highest`` (fp32), as JAX
+    pins them.
     """
+    if variance_precision == "follow":
+        variance_precision = matmul_precision
     if solve_mode == "inverse" or (solve_mode == "mixed" and not whitened):
         Linv = Kuu_inv if Kuu_inv is not None else tri_inverse(Kuu_chol, impl=impl)
     if whitened:
         if solve_mode == "inverse":
-            B_w = Linv @ Kuf  # (..., m, N)
+            B_w = matmul(Linv, Kuf, "highest")  # (..., m, N)
         else:
             B_w = tri_solve(Kuu_chol, Kuf, impl=impl)  # the only solve
         alphaT = B_w.transpose(-1, -2)  # (..., N, m)
         aKa = torch.square(alphaT).sum(dim=-1)
-        mu_tilde = mu_x + alphaT @ delta
-        aOa = _quad_diag(alphaT, Omega_tril, quad_impl)
+        mu_tilde = mu_x + matmul(alphaT, delta, matmul_precision)
+        aOa = _quad_diag(alphaT, Omega_tril, quad_impl, variance_precision)
     elif solve_mode == "mixed":
-        half = Linv @ Kuf  # (..., m, N) = L^-1 Kuf
+        half = matmul(Linv, Kuf, "highest")  # (..., m, N) = L^-1 Kuf
         aKa = torch.square(half).sum(dim=-2)  # diag(Kfu Kuu^-1 Kuf)
         # Mean through the narrow (width-C) backward-stable solve.
         v = cholesky_solve(Kuu_chol, delta - mu_z, impl=impl)  # (..., m, C)
-        mu_tilde = mu_x + Kuf.transpose(-1, -2) @ v
+        mu_tilde = mu_x + matmul(Kuf.transpose(-1, -2), v, matmul_precision)
         # alpha^T Omega_L = (L^-1 Kuf)^T (L^-1 Omega_L): fold Linv into the
         # m x m channel factors so alpha^T is never formed.
-        C_om = Linv.unsqueeze(-3) @ Omega_tril  # (..., B, m, m)
-        aOa = _quad_diag(half.transpose(-1, -2), C_om, quad_impl)
+        C_om = matmul(Linv.unsqueeze(-3), Omega_tril, "highest")  # (..., B, m, m)
+        aOa = _quad_diag(half.transpose(-1, -2), C_om, quad_impl, variance_precision)
     elif solve_mode == "inverse":
-        half = Linv @ Kuf
-        alphaT = half.transpose(-1, -2) @ Linv  # (..., N, m) = Kfu Kuu^-1
+        half = matmul(Linv, Kuf, "highest")
+        alphaT = matmul(half.transpose(-1, -2), Linv, "highest")  # (..., N, m) = Kfu Kuu^-1
         aKa = torch.square(half).sum(dim=-2)
-        mu_tilde = mu_x + alphaT @ (delta - mu_z)
-        aOa = _quad_diag(alphaT, Omega_tril, quad_impl)
+        mu_tilde = mu_x + matmul(alphaT, delta - mu_z, matmul_precision)
+        aOa = _quad_diag(alphaT, Omega_tril, quad_impl, variance_precision)
     elif solve_mode in ("solve", "kl_inverse"):
         alpha = cholesky_solve(Kuu_chol, Kuf, impl=impl)  # (..., m, N)
         alphaT = alpha.transpose(-1, -2)
-        a_t_K = alphaT @ Kuu_chol
+        a_t_K = matmul(alphaT, Kuu_chol, variance_precision)
         aKa = torch.square(a_t_K).sum(dim=-1)
-        mu_tilde = mu_x + alphaT @ (delta - mu_z)
-        aOa = _quad_diag(alphaT, Omega_tril, quad_impl)
+        mu_tilde = mu_x + matmul(alphaT, delta - mu_z, matmul_precision)
+        aOa = _quad_diag(alphaT, Omega_tril, quad_impl, variance_precision)
     else:
         raise ValueError(f"unknown solve mode {solve_mode!r}")
     sigma = (
         kff_diag.unsqueeze(-2) - aKa.unsqueeze(-2) + aOa + 2.0 * diagonal_offset
     )
     return mu_tilde, sigma
+
+
+def _precisions(spec: ModelSpec) -> dict:
+    """``svgp_mean_var``'s precision names from the spec."""
+    return {"matmul_precision": spec.svgp_matmul_precision,
+            "variance_precision": spec.svgp_variance_precision}
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +446,7 @@ def warp_layer(
             kff, Kuf, L_a, mu_x, mu_z_a, tk(hp["delta_G"]), Om_a, eps,
             solve_mode=spec.svgp_solve_mode, Kuu_inv=Linv_a,
             impl=spec.cholesky_impl, quad_impl=spec.quad_diag_impl,
-            whitened=spec.whitened_variational,
+            whitened=spec.whitened_variational, **_precisions(spec),
         )
     if Va == V:
         mu_tilde, sigma, mu_z = mu_a, sig_a, mu_z_a
@@ -502,7 +532,7 @@ def _data_moments(spec, hp, Kuf, L_F, Linv_F, delta, Om_tril):
         kff, Kuf, L_F, 0.0, 0.0, delta, Om_tril, spec.diagonal_offset,
         solve_mode=spec.svgp_solve_mode, Kuu_inv=Linv_F,
         impl=spec.cholesky_impl, quad_impl=spec.quad_diag_impl,
-        whitened=spec.whitened_variational,
+        whitened=spec.whitened_variational, **_precisions(spec),
     )
     return mu_t, torch.clamp_min(sig.transpose(-1, -2), _VAR_FLOOR)
 
@@ -647,6 +677,7 @@ def impute_at(
             data_aux.Omega_tril[mod.name], spec.diagonal_offset,
             solve_mode=spec.svgp_solve_mode, Kuu_inv=data_aux.Kuu_inv,
             quad_impl=spec.quad_diag_impl, whitened=spec.whitened_variational,
+            **_precisions(spec),
         )
         eps_t = noise[mod.name] if noise is not None else torch.randn(
             (S,) + tuple(mu_t.shape), generator=generator, dtype=mu_t.dtype, device=mu_t.device
@@ -999,3 +1030,12 @@ def predict_mean(spec: ModelSpec, hp: dict, batch):
         {m: mu_obs[m][0] for m in spec.modality_names},
         {m: var_obs[m][0] for m in spec.modality_names},
     )
+
+
+def mean_penalty(spec: ModelSpec, hp: dict) -> torch.Tensor:
+    """``mean_penalty_param`` times the mean square distance of the mean
+    slopes from the identity (the reference defines it and never adds it
+    to the loss; kept for its API, as the JAX package keeps it)."""
+    slopes = hp["mean_slopes"]
+    eye = torch.eye(spec.n_spatial_dims, dtype=slopes.dtype, device=slopes.device)
+    return spec.mean_penalty_param * torch.mean(torch.square(slopes - eye))

@@ -8,9 +8,17 @@ stacked and masked, per modality:
   mask    (n_views, N_pad)        1.0 = real point, 0.0 = pad
 
 ``ModelSpec`` has the same fields and ``auto`` resolutions as the JAX
-package's, so spec dicts round-trip between the two. The port computes in
-float32 whatever the precision names say (they count TPU matrix-unit
-passes; the names are kept for the round trip). The three kernel opt-ins
+package's, so spec dicts round-trip between the two. The precision names
+(``svgp_matmul_precision`` for the SVGP mean's products,
+``svgp_variance_precision`` for the variance's; ``auto`` gives
+``high``/``default`` from 2,000 points, ``highest``/``follow`` below) mean
+on the card (:mod:`..ops.precision`): ``default`` one TF32 pass, in cuBLAS
+and in the quad kernels, forward and backward; ``high`` fp32 in cuBLAS
+(measured: a 3xTF32 split of the width-C mean products takes 9 to 10 times
+the fp32 GEMM's time, ``tools/mean_products.py``) and 3xTF32 in the quad
+kernels; ``highest`` the same as ``high``; each whatever PyTorch's
+process-wide TF32 setting reads. On the CPU every name is fp32, as XLA's
+CPU products are. The three kernel opt-ins
 route as in the JAX package, without its TPU shape gates:
 ``cholesky_impl="pallas"`` sends the triangular solves and inverses to the
 trisolve kernel (every Cholesky of a CUDA tensor runs the Cholesky kernel

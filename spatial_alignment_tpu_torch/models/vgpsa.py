@@ -236,6 +236,18 @@ class VariationalGPSA(MultistartMixin):
     def parameters(self):
         return leaves(self.params)
 
+    def train(self):  # torch-API shims: the model has no modes
+        return self
+
+    def eval(self):
+        return self
+
+    def to(self, device=None):
+        """Returns the model. The device is fixed at construction
+        (``device=``): this moves nothing."""
+        del device
+        return self
+
     def create_view_idx_dict(self, data_dict):
         """view_idx, Ns, Ps, n_total of an arbitrary data_dict."""
         view_idx, Ns, Ps = {}, {}, {}
@@ -772,6 +784,13 @@ class VariationalGPSA(MultistartMixin):
         self.__dict__.pop("_train_loop_cache", None)
         self.__dict__.pop("_vec_loop_cache", None)
         return self
+
+
+def distance_matrix(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared Euclidean distances between the rows of X (n, D)
+    and Y (m, D), as an (m, n) matrix (the reference helper, kept for its
+    API as the JAX package keeps it)."""
+    return torch.sum(torch.square(X.unsqueeze(0) - Y.unsqueeze(1)), dim=2)
 
 
 class GPSA(VariationalGPSA):

@@ -6,9 +6,12 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and of every shared header
-(``csrc/*.cuh``), so an edited source or header never loads a stale
-library. The build happens at first use, inside the function that
+A library may also be a second build of a source with macros of its own
+(``VARIANTS``: ``quad_tf32`` is ``quad.cu`` built with
+``-DSAT_QUAD_TF32_PASSES=1``, the quad kernels' one-pass TF32 mode). The
+file name carries a hash of the source, of every shared header
+(``csrc/*.cuh``) and of the variant's flags, so an edited source or header
+never loads a stale library. The build happens at first use, inside the function that
 launches a kernel; importing this module compiles nothing. ``build_all``
 starts one nvcc per source, all at once, and waits for them together.
 """
@@ -27,7 +30,9 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("cholesky", "trisolve", "quad", "factor", "gram")
+SOURCES = ("cholesky", "trisolve", "quad", "quad_tf32", "factor", "gram")
+# Libraries built from another library's source: name -> (source, nvcc flags).
+VARIANTS = {"quad_tf32": ("quad", ("-DSAT_QUAD_TF32_PASSES=1",))}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -49,10 +54,18 @@ def _nvcc() -> str:
     )
 
 
+def _source(name: str):
+    """(source file, extra nvcc flags) of library ``name``."""
+    src, flags = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", flags
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    src, flags = _source(name)
+    h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(" ".join(flags).encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -64,8 +77,9 @@ def _start(name: str, verbose: bool):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    flags = [*NVCC_FLAGS, "-Xptxas", "-v"] if verbose else list(NVCC_FLAGS)
-    cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src, extra = _source(name)
+    flags = [*NVCC_FLAGS, *extra, *(("-Xptxas", "-v") if verbose else ())]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -96,7 +110,8 @@ def build_all(names: Iterable[str] = SOURCES, verbose: bool = False):
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library ``name`` (``csrc/<name>.cu`` or a ``VARIANTS``
+    build), building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
         build_all([name])

@@ -15,6 +15,11 @@ The kernel opt-ins route as in the JAX package:
     factor-and-inverse of :func:`jittered_cholesky_inverse` and
     :func:`joint_factor_cholesky_inverse` to :mod:`.factor`; ``auto``,
     ``off`` and None keep the Cholesky followed by :func:`tri_inverse`.
+``set_cholesky_impl`` is the JAX package's process-wide override of that
+field: a non-"auto" value decides for every call whose ``impl`` is None or
+"auto", read when the call runs (a captured training step keeps what it was
+captured with). As the field, it routes the triangular solves only: every
+Cholesky of a CUDA tensor runs the Cholesky kernel whatever it says.
 Divergence from the JAX package: its gates on the TPU's shapes (the
 128-lane padding minimum ``m >= 48``, the batch minimum of the fused slab,
 the VMEM budgets of ``fits_vmem``) do not apply on the GPU and are dropped,
@@ -33,6 +38,9 @@ from .cholesky import cholesky
 
 __all__ = [
     "add_jitter",
+    "safe_cholesky",
+    "set_cholesky_impl",
+    "get_cholesky_impl",
     "jittered_cholesky",
     "jittered_cholesky_inverse",
     "joint_factor_cholesky",
@@ -58,6 +66,28 @@ _NOISE_SAFETY = 0.5  # a few times above that storage-rounding floor
 _FLOOR_MIN_M = 64
 
 
+_CHOLESKY_IMPL = "auto"
+
+
+def set_cholesky_impl(impl: str) -> None:
+    """Process-wide override of ``ModelSpec.cholesky_impl``: 'auto', 'xla'
+    or 'pallas' (see the module doc; the per-model field is the first-class
+    switch, as in the JAX package)."""
+    global _CHOLESKY_IMPL
+    if impl not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown cholesky impl {impl!r}")
+    _CHOLESKY_IMPL = impl
+
+
+def get_cholesky_impl() -> str:
+    return _CHOLESKY_IMPL
+
+
+def _solve_impl(impl: Optional[str]) -> Optional[str]:
+    """A call's ``impl``, with None and "auto" taking the process-wide one."""
+    return _CHOLESKY_IMPL if impl in (None, "auto") else impl
+
+
 def _eye(m: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(m, dtype=like.dtype, device=like.device)
 
@@ -69,6 +99,14 @@ def _diag_mean(mat: torch.Tensor) -> torch.Tensor:
 def add_jitter(mat: torch.Tensor, jitter: float) -> torch.Tensor:
     """mat + jitter * I on the trailing two dims (batched)."""
     return mat + jitter * _eye(mat.shape[-1], mat)
+
+
+def safe_cholesky(mat: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Lower Cholesky of a (batched) PSD matrix, ``jitter`` added to the
+    diagonal first when nonzero (the Cholesky kernel on a CUDA tensor)."""
+    if jitter:
+        mat = add_jitter(mat, jitter)
+    return cholesky(mat)
 
 
 def _base_jitter(mat: torch.Tensor, eps: float) -> torch.Tensor:
@@ -201,7 +239,7 @@ def tri_solve(
 ) -> torch.Tensor:
     """Solve L x = rhs (L^T x = rhs when ``trans``); batch dims broadcast.
     ``impl="pallas"`` takes :mod:`.trisolve`."""
-    if impl == "pallas":
+    if _solve_impl(impl) == "pallas":
         return trisolve.tri_solve(chol, rhs, trans)
     return trisolve.tri_solve_plain(chol, rhs, trans)
 
@@ -210,7 +248,7 @@ def tri_inverse(chol: torch.Tensor, *, impl: Optional[str] = None) -> torch.Tens
     """Explicit inverse of a lower-triangular factor: one width-m solve
     against I, differentiated by autograd through the solve.
     ``impl="pallas"`` takes :mod:`.trisolve`'s identity-RHS kernel."""
-    if impl == "pallas":
+    if _solve_impl(impl) == "pallas":
         return trisolve.tri_inverse(chol)
     return trisolve.tri_inverse_plain(chol)
 

@@ -7,14 +7,21 @@ Replaces ``spatial_alignment_tpu/ops/pallas_quad.py:quad_diag`` (forward
 ``_fwd_pallas``, backward ``_bwd_pallas``). Like the TPU kernels, the CUDA
 kernels (``csrc/quad.cu``, design and bound in its header) never write the
 (..., L, N, m) product to device memory, and the backward makes it again
-tile by tile instead of saving it. Both run on the tensor cores in 3xTF32;
-the backward's dx and dF passes each make t and feed it, in registers, to
-their second product, their chunks split over blocks whose partial sums are
-added in a fixed order (:func:`bwd_design` reports the split; above m = 256
-two warps share each group of rows, above m = 512 the first design runs).
+tile by tile instead of saving it. Both run on the tensor cores, and take
+the precision name the TPU kernels take (``pallas_quad.py:_dot_prec``):
+``high`` and ``highest`` in 3xTF32 (about 2^-21 of a product), ``default``
+in one TF32 pass (operands rounded to TF32, about 2^-11 each), as the TPU
+kernel runs one bf16 pass. The two modes are two builds of ``quad.cu``
+(libraries ``quad`` and ``quad_tf32``). The backward's dx and dF passes
+each make t and feed it, in registers, to their second product, their
+chunks split over blocks whose partial sums are added in a fixed order
+(:func:`bwd_design` reports the split; above m = 256 two warps share each
+group of rows, above m = 512 the first design runs, in fp32 tiles).
 ``models.core`` sends a quad-diag here
 only under ``quad_diag_impl="pallas"``; otherwise it runs
 :func:`quad_diag_plain` and autograd, as the JAX package's ``xla`` route.
+The plain versions form their products through :mod:`.precision`: at
+``default`` on a CUDA tensor in cuBLAS TF32, in both directions.
 
 The factors take two forms, in one launch each:
   - shared, F (L, m, m), as the data layer's: xT (..., N, m);
@@ -44,6 +51,7 @@ import math
 import torch
 
 from . import _build
+from . import precision as _precision
 from ._restart_axis import to_front
 
 __all__ = [
@@ -59,13 +67,15 @@ fwd_launches = 0
 bwd_launches = 0
 plain_calls = 0
 
-_lib = None
+_libs = {}
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("quad")
+def _library(precision: str = "highest") -> ctypes.CDLL:
+    """The build of ``csrc/quad.cu`` that runs ``precision``: ``quad_tf32``
+    (one TF32 pass) for ``default``, ``quad`` (3xTF32) otherwise."""
+    name = "quad_tf32" if _precision.check_name(precision) == "default" else "quad"
+    if name not in _libs:
+        lib = _build.load(name)
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.sat_quad_fwd_strided_f32.argtypes = [vp, ll, ll, ll, vp, ll, vp, i, i, i, i, vp]
         lib.sat_quad_fwd_strided_f32.restype = i
@@ -73,15 +83,19 @@ def _library() -> ctypes.CDLL:
         lib.sat_quad_bwd_f32.restype = i
         lib.sat_quad_bwd_design.argtypes = [i, i, i, i, i, ctypes.POINTER(ll)]
         lib.sat_quad_bwd_design.restype = i
-        _lib = lib
-    return _lib
+        lib.sat_quad_tf32_passes.argtypes = []
+        lib.sat_quad_tf32_passes.restype = i
+        _libs[name] = lib
+    return _libs[name]
 
 
-def quad_diag_plain(xT: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+def quad_diag_plain(xT: torch.Tensor, factors: torch.Tensor,
+                    precision: str = "highest") -> torch.Tensor:
     """(..., L, N) from xT (..., N, m) and factors (L, m, m) or
-    (..., L, m, m), materializing the product; autograd differentiates it.
-    The plain version of :func:`quad_fwd_kernel`."""
-    t = xT.unsqueeze(-3) @ factors  # (..., L, N, m)
+    (..., L, m, m), materializing the product t at ``precision``
+    (:func:`.precision.matmul`); autograd differentiates it. The plain
+    version of :func:`quad_fwd_kernel`."""
+    t = _precision.matmul(xT.unsqueeze(-3), factors, precision)  # (..., L, N, m)
     return torch.square(t).sum(dim=-1)
 
 
@@ -110,8 +124,9 @@ def _check(x: torch.Tensor, F: torch.Tensor, what: str):
         raise ValueError(f"{what}: x {tuple(x.shape)} and F {tuple(F.shape)} do not fit")
 
 
-def quad_fwd_kernel(x: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel on the canonical form; returns (G, L, N)."""
+def quad_fwd_kernel(x: torch.Tensor, F: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """Launch the forward kernel on the canonical form at ``precision``;
+    returns (G, L, N)."""
     global fwd_launches
     _check(x, F, "quad_fwd_kernel")
     G, N, m, L, per_group = _dims(x, F)
@@ -125,21 +140,23 @@ def quad_fwd_kernel(x: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().sat_quad_fwd_strided_f32(
+        err = _library(precision).sat_quad_fwd_strided_f32(
             x.data_ptr(), *x.stride(), F.data_ptr(), L * m * m if per_group else 0,
             out.data_ptr(), G, N, m, L, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"quad forward kernel launch failed with CUDA error {err} "
-            f"(G={G}, N={N}, m={m}, L={L})"
+            f"(G={G}, N={N}, m={m}, L={L}, precision={precision})"
         )
     fwd_launches += 1
     return out
 
 
-def quad_bwd_kernel(x: torch.Tensor, F: torch.Tensor, dy: torch.Tensor):
-    """Launch the backward kernels on the canonical form; returns (dx, dF)."""
+def quad_bwd_kernel(x: torch.Tensor, F: torch.Tensor, dy: torch.Tensor,
+                    precision: str = "highest"):
+    """Launch the backward kernels on the canonical form at ``precision``;
+    returns (dx, dF)."""
     global bwd_launches
     _check(x, F, "quad_bwd_kernel")
     G, N, m, L, per_group = _dims(x, F)
@@ -152,10 +169,10 @@ def quad_bwd_kernel(x: torch.Tensor, F: torch.Tensor, dy: torch.Tensor):
     x, F, dy = x.contiguous(), F.contiguous(), dy.contiguous()
     n_groups = G if per_group else 1
     with torch.cuda.device(x.device):
-        design = bwd_design(G, N, m, L, n_groups)
+        design = bwd_design(G, N, m, L, n_groups, precision)
         scratch = torch.empty((design["scratch_floats"],), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().sat_quad_bwd_f32(
+        err = _library(precision).sat_quad_bwd_f32(
             x.data_ptr(), F.data_ptr(), L * m * m if per_group else 0, dy.data_ptr(),
             dx.data_ptr(), dF.data_ptr(), scratch.data_ptr(), G, N, m, L, n_groups, stream,
         )
@@ -174,70 +191,79 @@ _DESIGN_KEYS = ("column_tiles", "block_rows", "chunk", "blocks_per_sm_dx", "bloc
 
 
 @functools.lru_cache(maxsize=None)
-def _design(device_index: int, G: int, N: int, m: int, L: int, n_groups: int) -> tuple:
+def _design(device_index: int, G: int, N: int, m: int, L: int, n_groups: int,
+            precision: str) -> tuple:
     out = (ctypes.c_longlong * len(_DESIGN_KEYS))()
-    err = _library().sat_quad_bwd_design(G, N, m, L, n_groups, out)
+    err = _library(precision).sat_quad_bwd_design(G, N, m, L, n_groups, out)
     if err != 0:
         raise RuntimeError(f"quad backward design query failed with CUDA error {err}")
     return tuple(int(v) for v in out)
 
 
-def bwd_design(G: int, N: int, m: int, L: int, n_groups: int) -> dict:
+def bwd_design(G: int, N: int, m: int, L: int, n_groups: int,
+               precision: str = "highest") -> dict:
     """What the backward launches at these sizes on the current device
     (``csrc/quad.cu``): its column tiles (0 above m = 512, the wide
     variant), block rows, chunk depth, blocks per SM, splits of dx and of
     dF (each above 1 adds a fixed-order sum), the floats of scratch, the
-    warps that share a group of 16 rows (2 above m = 256) and the chunk
-    buffers of the dx and the dF kernel."""
-    values = _design(torch.cuda.current_device(), G, N, m, L, n_groups)
-    return dict(zip(_DESIGN_KEYS, values))
+    warps that share a group of 16 rows (2 above m = 256), the chunk
+    buffers of the dx and the dF kernel, and the TF32 passes of a product
+    at ``precision`` (3, or 1 for ``default``; the wide variant runs fp32
+    tiles whatever the name)."""
+    values = _design(torch.cuda.current_device(), G, N, m, L, n_groups, precision)
+    passes = _library(precision).sat_quad_tf32_passes()
+    return {**dict(zip(_DESIGN_KEYS, values)), "tf32_passes": passes}
 
 
-def quad_bwd_plain(x: torch.Tensor, F: torch.Tensor, dy: torch.Tensor):
-    """Plain version of :func:`quad_bwd_kernel`, the JAX package's pullback:
-    t = x F_b, w = 2 dy t, dx = sum_b w F_bᵀ, dF_b = sum_n xᵀ w."""
-    t = x.unsqueeze(1) @ F  # (G, L, N, m)
-    w = 2.0 * t * dy.unsqueeze(-1)
-    dx = (w @ F.transpose(-1, -2)).sum(dim=1)
-    if F.dim() == 4:
-        dF = torch.einsum("gni,gbnk->gbik", x, w)
-    else:
-        dF = torch.einsum("gni,gbnk->bik", x, w)
+def quad_bwd_plain(x: torch.Tensor, F: torch.Tensor, dy: torch.Tensor,
+                   precision: str = "highest"):
+    """Plain version of :func:`quad_bwd_kernel`, the JAX package's pullback
+    with its products at ``precision``: t = x F_b, w = 2 dy t,
+    dx = sum_b w F_bᵀ, dF_b = sum_n xᵀ w."""
+    with _precision.scope(precision, x):
+        t = x.unsqueeze(1) @ F  # (G, L, N, m)
+        w = 2.0 * t * dy.unsqueeze(-1)
+        dx = (w @ F.transpose(-1, -2)).sum(dim=1)
+        if F.dim() == 4:
+            dF = torch.einsum("gni,gbnk->gbik", x, w)
+        else:
+            dF = torch.einsum("gni,gbnk->bik", x, w)
     return dx, dF
 
 
-def _fwd(x, F):
+def _fwd(x, F, precision):
     global plain_calls
     if x.device.type == "cpu":
         plain_calls += 1
-        return quad_diag_plain(x, F)
-    return quad_fwd_kernel(x, F)
+        return quad_diag_plain(x, F, precision)
+    return quad_fwd_kernel(x, F, precision)
 
 
-def _bwd(x, F, dy):
+def _bwd(x, F, dy, precision):
     global plain_calls
     if x.device.type == "cpu":
         plain_calls += 1
-        return quad_bwd_plain(x, F, dy)
-    return quad_bwd_kernel(x, F, dy)
+        return quad_bwd_plain(x, F, dy, precision)
+    return quad_bwd_kernel(x, F, dy, precision)
 
 
 class _QuadDiag(torch.autograd.Function):
     @staticmethod
-    def forward(x, F):
-        return _fwd(x, F)
+    def forward(x, F, precision):
+        return _fwd(x, F, precision)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
+        ctx.save_for_backward(*inputs[:2])
+        ctx.precision = inputs[2]
 
     @staticmethod
     def backward(ctx, dy):
         x, F = ctx.saved_tensors
-        return _bwd(x, F, dy)
+        return (*_bwd(x, F, dy, ctx.precision), None)
 
     @staticmethod
-    def vmap(info, in_dims, x, F):
+    def vmap(info, in_dims, x, F, precision):
         # x (R, G, N, m) folds into (R G, N, m). F keeps the shared form only
         # when it is the same for every restart; otherwise each of the R G
         # groups gets its own copy (one launch either way).
@@ -249,7 +275,7 @@ class _QuadDiag(torch.autograd.Function):
             if F.dim() == 4:  # (R, L, m, m): shared within each restart
                 F = F.unsqueeze(1).expand(R, G, *F.shape[1:])
             F = F.reshape((R * G,) + tuple(F.shape[2:]))
-        out = _QuadDiag.apply(x.reshape((R * G,) + tuple(x.shape[2:])), F)
+        out = _QuadDiag.apply(x.reshape((R * G,) + tuple(x.shape[2:])), F, precision)
         return out.reshape((R, G) + tuple(out.shape[1:])), 0
 
 
@@ -264,13 +290,14 @@ def _canonical_factors(factors: torch.Tensor, lead, G: int) -> torch.Tensor:
     return factors.reshape((G,) + tuple(factors.shape[-3:]))
 
 
-def quad_diag(xT: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+def quad_diag(xT: torch.Tensor, factors: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     """Differentiable (..., L, N) quadratic-form diagonals through the
-    kernels (see the module doc for the two forms of ``factors``)."""
+    kernels at ``precision`` (see the module doc for the two forms of
+    ``factors`` and the two modes)."""
     lead = xT.shape[:-2]
     N, m = xT.shape[-2:]
     G = math.prod(lead)
     x3 = xT.reshape(G, N, m)
     F = _canonical_factors(factors, lead, G)
-    out = _QuadDiag.apply(x3, F)
+    out = _QuadDiag.apply(x3, F, _precision.check_name(precision))
     return out.reshape(tuple(lead) + tuple(out.shape[-2:]))

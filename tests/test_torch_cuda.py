@@ -401,6 +401,123 @@ def test_cuda_quad_bwd_design(cuda_device, x_shape, f_shape, want):
         assert design["splits_dx"] > 1 and design["splits_df"] > 1
 
 
+# The one-pass TF32 builds (``default``) at the path's shapes and at the
+# edges of both backward designs (m = 37, 257, 384, 512) and the wide one.
+_QUADS_TF32 = [_QUADS[i] for i in (0, 1, 2, 4, 13, 17, 18, 22, 24)]
+
+
+@pytest.mark.parametrize("x_shape,f_shape", _QUADS_TF32)
+def test_cuda_quad_tf32_within_bound(cuda_device, x_shape, f_shape):
+    """The ``default`` (one TF32 pass) forward and backward: within
+    ``chip_smoke.error_bounds`` of float64 (operands rounded to TF32),
+    within the sum of theirs and cuBLAS TF32's (truncation allowed) of the
+    plain version at ``default``, two launches bit-equal, and the 3xTF32
+    build untouched by them; PyTorch's TF32 flags as they were."""
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).to(cuda_device)
+    F = torch.from_numpy((0.1 * rng.standard_normal(f_shape)).astype(np.float32)).to(cuda_device)
+    dy = torch.from_numpy(
+        rng.standard_normal((x_shape[0], f_shape[-3], x_shape[1])).astype(np.float32)
+    ).to(cuda_device)
+    got = (quad.quad_fwd_kernel(x, F, "default"), *quad.quad_bwd_kernel(x, F, dy, "default"))
+    again = (quad.quad_fwd_kernel(x, F, "default"), *quad.quad_bwd_kernel(x, F, dy, "default"))
+    plain = (quad.quad_diag_plain(x, F, "default"), *quad.quad_bwd_plain(x, F, dy, "default"))
+    three = quad.quad_fwd_kernel(x, F, "highest")
+    torch.cuda.synchronize()
+    # (Above m = 512 the backward's fp32 tiles sit well inside this bound.)
+    from chip_smoke import error_bounds
+
+    bounds = error_bounds(x, F, dy, "tf32")
+    bounds_p = error_bounds(x, F, dy, "tf32_truncated")
+    for k, p, a, (exact, b), (_, bp) in zip(got, plain, again, bounds, bounds_p):
+        assert torch.equal(k.view(torch.int32), a.view(torch.int32))
+        assert float(((k.double() - exact).abs() / b).max()) <= 1.0
+        assert float(((k.double() - p.double()).abs() / (b + bp)).max()) <= 1.0
+    assert _rel(three, bounds[0][0]) <= 1e-4
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()) == flags
+
+
+def test_cuda_precision_matmul_runs_tf32_both_ways(cuda_device):
+    """``precision.matmul`` at ``default``: cuBLAS TF32 kernels in the
+    forward and in both backward products (by the profiler's kernel names:
+    the card's run shows one sm90 tf32 kernel for two of them and a CUTLASS
+    tensor-op kernel for the third), fp32 ones at ``high``, and the flags as
+    they were."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spatial_alignment_tpu_torch.ops import precision
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    a = torch.randn(5, 1, 1000, 200, device=cuda_device, requires_grad=True)
+    b = torch.randn(10, 200, 200, device=cuda_device, requires_grad=True)
+    names = {}
+    for name in ("default", "high"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            precision.matmul(a, b, name).sum().backward()
+            torch.cuda.synchronize()
+        names[name] = [e.name.lower() for e in prof.events() if "gemm" in e.name.lower()]
+    # TF32 kernels say tf32, or are CUTLASS tensor-op kernels (s1688gemm).
+    tf32 = lambda n: "tf32" in n or "tensorop" in n
+    assert len(names["default"]) >= 3 and all(map(tf32, names["default"])), names["default"]
+    assert names["high"] and not any(map(tf32, names["high"])), names["high"]
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()) == flags
+
+
+@pytest.mark.parametrize("whitened", [False, True], ids=["square", "whitened"])
+def test_cuda_svgp_products_keep_their_names_under_the_global_flag(cuda_device, whitened):
+    """``svgp_mean_var`` ("inverse" mode, every product a named one) with
+    PyTorch's process-wide TF32 flag on against the flag off: the forward
+    bit for bit at highest/highest and at high/default; at highest no GEMM
+    on the tensor cores and the gradients within 1e-5 (the autograd
+    Function's backward sums in another order than autograd's); at
+    high/default tensor-core GEMMs both ways; the flags as they were."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(14)
+    m, N, C, B = 64, 700, 3, 3
+    A = rng.standard_normal((m, m))
+    Kuu_chol = torch.from_numpy(np.linalg.cholesky(A @ A.T / m + np.eye(m)).astype(np.float32))
+    Kuu_inv = torch.linalg.inv(Kuu_chol)
+    dev = lambda t: t.to(cuda_device)
+    Kuf0 = dev(torch.from_numpy(rng.standard_normal((m, N)).astype(np.float32)))
+    delta0 = dev(torch.from_numpy(rng.standard_normal((m, C)).astype(np.float32)))
+    Om0 = dev(torch.from_numpy(np.tril(0.1 * rng.standard_normal((B, m, m))).astype(np.float32)))
+    kff = torch.ones(N, device=cuda_device)
+
+    def run(names):
+        Kuf, delta, Om = (t.clone().requires_grad_(True) for t in (Kuf0, delta0, Om0))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mu, var = core.svgp_mean_var(kff, Kuf, dev(Kuu_chol), 0.0, 0.0, delta, Om, 1e-5,
+                                         solve_mode="inverse", Kuu_inv=dev(Kuu_inv),
+                                         whitened=whitened, matmul_precision=names[0],
+                                         variance_precision=names[1])
+            (mu.square().sum() + var.sum()).backward()
+            torch.cuda.synchronize()
+        gemms = [e.name.lower() for e in prof.events() if "gemm" in e.name.lower()]
+        return [t.detach() for t in (mu, var)], [t.grad for t in (Kuf, delta, Om)], gemms
+
+    tf32 = lambda n: "tf32" in n or "tensorop" in n
+    mm = torch.backends.cuda.matmul
+    before = (mm.allow_tf32, torch.get_float32_matmul_precision())
+    for names in (("highest", "highest"), ("high", "default")):
+        outs_off, grads_off, gemms_off = run(names)
+        mm.allow_tf32 = True
+        try:
+            outs_on, grads_on, gemms_on = run(names)
+        finally:
+            torch.set_float32_matmul_precision(before[1])
+        for a, b in zip(outs_off, outs_on):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), names
+        if names[1] == "highest":
+            assert gemms_on and not any(map(tf32, gemms_off + gemms_on)), gemms_on
+            for a, b in zip(grads_off, grads_on):
+                assert _rel(b, a) <= 1e-5, names
+        else:
+            assert any(map(tf32, gemms_off)) and any(map(tf32, gemms_on))
+    assert (mm.allow_tf32, torch.get_float32_matmul_precision()) == before
+
+
 # The path's slabs, the edges of the shared-memory design's 32-column
 # panels (1, 31, 32, 33, 65), the m = 100 slab, its largest size (240),
 # then the panel design (241, 256, 300, the m = 384 fit's slab, 512) and,
@@ -1002,3 +1119,28 @@ def test_cuda_restart_step_matches_each_restart_alone(cuda_device, opt_ins):
         assert _rel(losses[r], loss) <= 1e-5
         for a, b in zip(leaves(params), leaves(alone)):
             assert _rel(a.grad[r], b.grad) <= 1e-3
+
+
+def test_cuda_mle_fit_is_captured_and_matches_the_cpu(cuda_device):
+    """``WarpGPMLE.fit`` on the card, with the LMC projection (its
+    pseudo-inverse through the Gram's Cholesky, which a captured step can
+    run): a captured step, finite losses within 1e-3 of the CPU's eager
+    steps (float32, another Cholesky), the fixed view's G bit for bit."""
+    from spatial_alignment_tpu_torch import WarpGPMLE
+    from spatial_alignment_tpu_torch.data import generate_twod_data
+
+    X, Y, nsl, vi = generate_twod_data(2, 10, grid_size=8, n_latent_gps=3, kernel_variance=0.1,
+                                       kernel_lengthscale=5.0, noise_variance=1e-3,
+                                       fixed_view_idx=0, rng=np.random.default_rng(0))
+    dd = {"expression": {"spatial_coords": X.astype(np.float32),
+                         "outputs": Y.astype(np.float32), "n_samples_list": nsl}}
+    kw = dict(n_latent_gps={"expression": 3}, fixed_view_idx=0,
+              fixed_warp_kernel_variances=np.ones(2), fixed_warp_kernel_lengthscales=np.ones(2) * 2.0)
+    card = WarpGPMLE(dd, device=cuda_device, **kw)
+    host = WarpGPMLE(dd, device="cpu", **kw)
+    got, want = card.fit(n_epochs=20), host.fit(n_epochs=20)
+    assert card._loop.graph is not None
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+    G = card.G["expression"]
+    np.testing.assert_array_equal(G[vi[0]], X.astype(np.float32)[vi[0]])

@@ -34,6 +34,13 @@ import spatial_alignment_tpu_torch.utils.profiling
 import spatial_alignment_tpu_torch.utils.prealign
 import spatial_alignment_tpu_torch.utils.ot
 import spatial_alignment_tpu_torch.models.multistart
+import spatial_alignment_tpu_torch.models.mle
+import spatial_alignment_tpu_torch.ops.precision
+import spatial_alignment_tpu_torch.ops.quad
+import spatial_alignment_tpu_torch.utils
+import spatial_alignment_tpu_torch.utils.preprocess
+import spatial_alignment_tpu_torch.utils.metrics
+import spatial_alignment_tpu_torch.utils.gsea
 print(json.dumps(sorted(sys.modules)))
 """
 
