@@ -21,7 +21,9 @@ models; and the triangular and whitened variational parameterizations
 (bench.py's fourth key at m = 50, the m = 200 model in both, the whitened
 one also with the opt-ins, which sends its width-N solves to the solve
 kernel, and the forced 100k model whitened) with ``forward(G_test=)``
-imputation; and ``WarpGPMLE``, the maximum-likelihood model. From 2,000
+imputation; and ``WarpGPMLE``, the maximum-likelihood model; and the
+command line, ``python -m spatial_alignment_tpu_torch align`` and
+``predict`` in subprocesses on the m = 200 model's data. From 2,000
 points the models resolve the precision names to high/default, which runs
 their variance products in one TF32 pass (cuBLAS, and the quad kernels'
 one-pass build on the opt-in route). Every ``fit()`` runs its
@@ -161,6 +163,20 @@ JSON line each:
              losses, the fixed view's G its coords bit for bit, aligned
              error below the data's beside the JAX record; then a 16 x 16
              grid (512 points), 200 steps, timed; the Cholesky at their Grams
+  cli        the command line on the card: fit_m200's data written to
+             per-view CSVs, `python -m spatial_alignment_tpu_torch align`
+             in a subprocess with fit_m200's model flags, 300 epochs and no
+             --device: exit 0, the four artifacts, the manifest's generator
+             on cuda, summary.json's keys, the post-alignment view MSE below
+             the pre-alignment one, losses.csv bit for bit an in-process
+             fit of the same model (its counters: 2 Cholesky launches a
+             step); `predict` from the checkpoint alone at a 64 x 64 grid
+             and at the stored coordinates against VariationalGPSA.load in
+             this process (rel 1e-6); wall seconds, steps/s beside the
+             in-process fit's, which optional packages the machine has
+  data_host  the generators, warps, CSV loaders, k-NN filters, rotation,
+             synthetic_*_like stand-ins and morans_i on the host: finite,
+             of the JAX package's shapes
   multistart_m50  fit_multistart at the JAX package's accuracy harness, full
              width (seed 0's draw, two views of 100, m = 50, 5 latent GPs;
              16 restarts of 10,000 epochs, consistency selection, top-2
@@ -2800,6 +2816,248 @@ def phase_mle(device, peaks):
     return record
 
 
+# The keys of the JAX package's summary.json (spatial_alignment_tpu/cli.py).
+CLI_SUMMARY_KEYS = ["n_views", "n_samples_list", "n_outputs", "epochs", "final_neg_elbo",
+                    "train_seconds", "pre_alignment_view_mse", "post_alignment_view_mse",
+                    "artifacts"]
+CLI_EPOCHS = 300
+
+
+def run_cli(args, out_log):
+    """``python -m spatial_alignment_tpu_torch`` in a subprocess from the
+    checkout, with no --device (the card): (wall seconds, its stdout). Its
+    output goes into the phase's record, not this script's stdout."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "spatial_alignment_tpu_torch", *args],
+                          cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    out_log.append({"args": args[:1], "rc": done.returncode,
+                    "stdout_tail": done.stdout[-600:], "stderr_tail": done.stderr[-1500:]})
+    check(done.returncode == 0, f"cli {args[0]}: exit {done.returncode}: {done.stderr[-1500:]}")
+    return wall, done.stdout
+
+
+def write_view_csvs(d: Path, dd):
+    """Each view of ``dd`` as the command line reads it: coordinates under an
+    x,y header, counts under a gene header with a spot index column, every
+    float32 at 9 significant digits (exact in float32)."""
+    import numpy as np
+
+    X, Y = dd["expression"]["spatial_coords"], dd["expression"]["outputs"]
+    cs = np.insert(np.cumsum(dd["expression"]["n_samples_list"]), 0, 0)
+    args = []
+    for v in range(len(cs) - 1):
+        cpath, ypath = d / f"view{v}_xy.csv", d / f"view{v}_counts.csv"
+        np.savetxt(cpath, X[cs[v]:cs[v + 1]], delimiter=",", header="x,y", comments="",
+                   fmt="%.9g")
+        n = cs[v + 1] - cs[v]
+        np.savetxt(ypath, np.column_stack([np.arange(n), Y[cs[v]:cs[v + 1]]]), delimiter=",",
+                   header=",".join(["spot"] + [f"g{j}" for j in range(Y.shape[1])]),
+                   comments="", fmt=["%d"] + ["%.9g"] * Y.shape[1])
+        args += ["--coords", str(cpath), "--counts", str(ypath)]
+    return args
+
+
+def phase_cli(dd200, kw200, epochs=CLI_EPOCHS):
+    """The command line on the card: ``align`` on fit_m200's data written to
+    per-view CSVs, with the flags that give fit_m200's model and no
+    --device; its losses.csv against an in-process fit of the same model
+    from the same seed, bit for bit (that fit's counters show the Cholesky
+    launches, so the command line ran the main path and its kernel); then
+    ``predict`` from the checkpoint alone, at a 64 x 64 grid and at the
+    stored coordinates, against ``VariationalGPSA.load(...).predict`` in
+    this process within rel 1e-6."""
+    import importlib.util
+    import json as json_
+    import numpy as np
+    import torch
+    from spatial_alignment_tpu_torch import VariationalGPSA
+    from spatial_alignment_tpu_torch.data import load_csv_expression
+
+    X, Y = dd200["expression"]["spatial_coords"], dd200["expression"]["outputs"]
+    nsl = dd200["expression"]["n_samples_list"]
+    logs, row = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        views = write_view_csvs(d, dd200)
+        for v in range(len(nsl)):
+            x, y = load_csv_expression(views[4 * v + 1], views[4 * v + 3])
+            lo = sum(nsl[:v])
+            check(np.array_equal(x.astype(np.float32), X[lo:lo + nsl[v]])
+                  and np.array_equal(y.astype(np.float32), Y[lo:lo + nsl[v]]),
+                  f"cli: view {v}'s CSVs do not carry its float32 data exactly")
+        out = d / "out"
+        wall, _ = run_cli(["align", *views, "--m", str(kw200["m_G"]),
+                           "--n-latent-gps", str(kw200["n_latent_gps"]["expression"]),
+                           "--template", str(kw200["fixed_view_idx"]),
+                           "--mean-function", kw200["mean_function"],
+                           "--epochs", str(epochs), "--print-every", "100",
+                           "--out", str(out)], logs)
+        row["align_wall_seconds"] = wall
+        arts = sorted(p.name for p in out.iterdir())
+        check(arts == ["aligned_coords.csv", "losses.csv", "model.npz", "model.npz.json",
+                       "summary.json"], f"cli align: artifacts {arts}")
+        manifest = json_.loads((out / "model.npz.json").read_text())
+        check(manifest.get("torch_rng_device") == "cuda",
+              f"cli align: manifest torch_rng_device {manifest.get('torch_rng_device')}")
+        summary = json_.loads((out / "summary.json").read_text())
+        check(list(summary) == CLI_SUMMARY_KEYS, f"cli align: summary keys {list(summary)}")
+        pre, post = summary["pre_alignment_view_mse"], summary["post_alignment_view_mse"]
+        check(math.isfinite(summary["final_neg_elbo"]) and post < pre,
+              f"cli align: final loss {summary['final_neg_elbo']}, view mse {pre} -> {post}")
+        losses_cli = np.loadtxt(out / "losses.csv", skiprows=1)
+        check(losses_cli.shape == (epochs,), f"cli align: losses.csv {losses_cli.shape}")
+        aligned = np.loadtxt(out / "aligned_coords.csv", delimiter=",", skiprows=1)
+        check(aligned.shape == (sum(nsl), 5), f"cli align: aligned_coords {aligned.shape}")
+
+        # The in-process twin: the command line's defaults (lr 1e-2, S = 5,
+        # plain recipe) on the same data, model and seed.
+        twin_model = VariationalGPSA(dd200, **kw200)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = twin_model.fit(epochs, lr=1e-2, S=5, print_every=100, recipe="plain")
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches, plain = read_counts()
+        check(np.array_equal(losses_cli, losses),
+              f"cli align: losses.csv differs from the in-process fit at "
+              f"{int(np.sum(losses_cli != losses))} of {epochs} steps "
+              f"(first {np.flatnonzero(losses_cli != losses)[:3].tolist()})")
+        check(launches["cholesky"] == DEFAULT_PER_STEP["cholesky"] * epochs
+              and not any(plain.values()),
+              f"cli twin: launches {launches}, plain {plain}")
+
+        # predict from the checkpoint alone: a 64 x 64 grid, then the stored
+        # training coordinates.
+        ax = np.linspace(0.0, 10.0, 64)
+        g1, g2 = np.meshgrid(ax, ax)
+        grid = np.stack([g1.ravel(), g2.ravel()], 1).astype(np.float32)
+        np.savetxt(d / "grid.csv", grid, delimiter=",", header="x,y", comments="", fmt="%.9g")
+        model = VariationalGPSA.load(str(out / "model.npz"))
+        n_g = grid.shape[0]
+        cases = {
+            "at_grid": (["--at", str(d / "grid.csv")], (2 * n_g, Y.shape[1]),
+                        lambda: model.predict(
+                            {"expression": np.tile(grid, (2, 1))},
+                            {"expression": [np.arange(v * n_g, (v + 1) * n_g)
+                                            for v in range(2)]})),
+            "stored": ([], (sum(nsl), Y.shape[1]), lambda: model.predict({"expression": X})),
+        }
+        for name, (extra, shape, local) in cases.items():
+            dest = d / f"pred_{name}"
+            wall, _ = run_cli(["predict", "--checkpoint", str(out / "model.npz"), *extra,
+                               "--out", str(dest)], logs)
+            mu = np.loadtxt(dest / "pred_mean.csv", delimiter=",")
+            var = np.loadtxt(dest / "pred_var.csv", delimiter=",")
+            G = np.loadtxt(dest / "aligned_coords.csv", delimiter=",", skiprows=1)
+            check(mu.shape == shape and var.shape == shape and G.shape == (shape[0], 2),
+                  f"cli predict {name}: shapes {mu.shape}, {var.shape}, {G.shape}")
+            check(bool(np.isfinite(mu).all() and np.isfinite(G).all() and (var > 0).all()),
+                  f"cli predict {name}: non-finite mean or non-positive variance")
+            G_l, F_l, V_l = (np.asarray(o["expression"], np.float64) for o in local())
+            rels = {k: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)) for k, a, b in
+                    (("aligned", G, G_l), ("mean", mu, F_l), ("var", var, V_l))}
+            check(max(rels.values()) <= 1e-6,
+                  f"cli predict {name}: against the in-process load, rel {rels}")
+            row[f"predict_{name}"] = {"wall_seconds": wall, "shape": list(shape),
+                                      "rel_vs_in_process": rels}
+    cli_steps = epochs / summary["train_seconds"]
+    emit("cli", epochs=epochs, train_seconds=summary["train_seconds"],
+         steps_per_s=cli_steps, in_process_fit_seconds=fit_s,
+         in_process_steps_per_s=epochs / fit_s, losses_bit_equal=True,
+         in_process_launches=launches, final_neg_elbo=summary["final_neg_elbo"],
+         pre_alignment_view_mse=pre, post_alignment_view_mse=post,
+         torch_rng_device=manifest["torch_rng_device"], **row,
+         importable={m: importlib.util.find_spec(m) is not None
+                     for m in ("h5py", "matplotlib", "pandas", "sklearn")},
+         subprocesses=logs)
+
+
+def phase_data_host(dd200):
+    """Every host-side function of ``data/`` and the repaired ``morans_i``
+    on this machine's Python (no pandas, no sklearn needed): each result
+    finite and of the JAX package's shape."""
+    import numpy as np
+    from spatial_alignment_tpu_torch import data
+    from spatial_alignment_tpu_torch.utils.metrics import morans_i
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    ax = np.linspace(0, 10, 20)
+    g1, g2 = np.meshgrid(ax, ax)
+    grid = np.stack([g1.ravel(), g2.ravel()], 1)
+    out = {}
+
+    def hold(name, arrays, shapes):
+        got = [tuple(np.shape(a)) for a in arrays]
+        check(got == shapes, f"data_host {name}: shapes {got}, expected {shapes}")
+        check(all(np.isfinite(np.asarray(a, np.float64)).all() for a in arrays),
+              f"data_host {name}: non-finite values")
+        out[name] = [list(s) for s in got]
+
+    X, Y, nsl, _ = data.generate_oned_data_affine_warp(2, 3, 100, rng=rng)
+    hold("generate_oned_data_affine_warp", [X, Y], [(200, 1), (200, 3)])
+    X, Y, nsl, _ = data.generate_oned_data_gp_warp(2, 2, 100, n_latent_gps=1, rng=rng)
+    hold("generate_oned_data_gp_warp", [X, Y], [(200, 1), (200, 2)])
+    X, Y, nsl, _ = data.generate_twod_data(2, 30, 20, n_latent_gps=5, fixed_view_idx=0, rng=rng)
+    hold("generate_twod_data", [X, Y], [(800, 2), (800, 30)])
+    X, Y, nsl, _, keep = data.generate_twod_data_partial_overlap(2, 10, 20, rng=rng)
+    n_keep = int(keep.sum())
+    hold("generate_twod_data_partial_overlap", [X, Y], [(400 + n_keep, 2), (400 + n_keep, 10)])
+    Y0 = np.sin(grid)
+    X, Y, _, _ = data.apply_gp_warp(grid, Y0, 3, noise_variance=0.01, rng=rng)
+    hold("apply_gp_warp", [X, Y], [(1200, 2), (1200, 2)])
+    Xs, Ys, _, _ = data.apply_gp_warp_multimodal([grid[:150], grid[150:]], [Y0[:150], Y0[150:]],
+                                                 2, rng=rng)
+    hold("apply_gp_warp_multimodal", [*Xs, *Ys], [(300, 2), (500, 2), (300, 2), (500, 2)])
+    X, Y, _, _ = data.apply_linear_warp(grid, Y0, 2, rng=rng)
+    hold("apply_linear_warp", [X, Y], [(800, 2), (800, 2)])
+    X, Y, _, _ = data.apply_polar_warp(grid, Y0, 2, rng=rng)
+    hold("apply_polar_warp", [X, Y], [(800, 2), (800, 2)])
+
+    X200, Y200 = (np.asarray(dd200["expression"][k], np.float64)
+                  for k in ("spatial_coords", "outputs"))
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        views = write_view_csvs(d, dd200)
+        x, y = data.load_csv_expression(views[1], views[3])
+        hold("load_csv_expression", [x, y], [(2025, 2), (2025, 30)])
+        paths = []
+        for s in range(2):
+            labels = [f"{i}x{j}" for i in range(15) for j in range(15)]
+            counts = rng.poisson(3.0, (225, 40 - s))
+            path = d / f"st{s}.csv"
+            with open(path, "w") as f:
+                f.write(",".join([""] + [f"G{k + s}" for k in range(40 - s)]) + "\n")
+                for lab, r in zip(labels, counts):
+                    f.write(",".join([lab] + [str(v) for v in r]) + "\n")
+            paths.append(str(path))
+        coords, counts, names = data.load_st_data(paths, n_genes=20)
+        hold("load_st_data", [*coords, *counts], [(225, 2)] * 2 + [(225, 20)] * 2)
+    keep = data.knn_r2_gene_filter(X200, Y200, 10)
+    hold("knn_r2_gene_filter", [keep], [(10,)])
+    mask = data.remove_outlier_spots(X200)
+    hold("remove_outlier_spots", [mask], [(4050,)])
+    hold("rotate_coords", [data.rotate_coords(X200, 20.0)], [(4050, 2)])
+    for name, fn, shapes in (
+            ("synthetic_visium_like", data.synthetic_visium_like, [(800, 2)] * 2 + [(800, 50)] * 2),
+            ("synthetic_slideseq_like", data.synthetic_slideseq_like,
+             [(3000, 2)] * 2 + [(3000, 30)] * 2),
+            ("synthetic_st_like", data.synthetic_st_like, [(144, 2)] * 4 + [(144, 40)] * 4)):
+        c, y = fn()
+        hold(name, [*c, *y], shapes)
+    I = morans_i(X200[:2025], Y200[:2025, :5])
+    hold("morans_i", [I], [(5,)])
+    emit("data_host", seconds=time.perf_counter() - t0, shapes=out,
+         morans_i_first_view=np.asarray(I).tolist(), knn_r2_top=keep.tolist(),
+         outliers_removed=int((~mask).sum()))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", type=Path,
@@ -3163,6 +3421,11 @@ def main() -> int:
         predict_mb100k, (model_mb, 1e-2, 5, None, MB_B))
     phase_resume(model)
     phase_mle(device, peaks)
+    # The command line and the host-side data functions, after every fit_*
+    # phase: fit_m200's data and model through `python -m
+    # spatial_alignment_tpu_torch align` / `predict`.
+    phase_cli(dd200, kw200)
+    phase_data_host(dd200)
 
     # fit_multistart, after every fit_* phase (its single-restart runs
     # overwrite the m = 200 models' parameters): the harness at m = 50, the

@@ -19,11 +19,18 @@ __all__ = ["morans_i", "morans_i_test", "landmark_distances"]
 
 
 def _knn_weights(coords: np.ndarray, n_neighbors: int) -> "np.ndarray":
-    """Row-normalized binary kNN adjacency (dense, small-N evaluation use)."""
-    from sklearn.neighbors import NearestNeighbors
+    """Binary kNN adjacency, ``n_neighbors`` ones a row (dense, small-N
+    evaluation use).
 
-    nn = NearestNeighbors(n_neighbors=n_neighbors + 1).fit(coords)
-    _, idx = nn.kneighbors(coords)
+    Each point's neighbours are the ``n_neighbors + 1`` nearest from
+    ``scipy.spatial.cKDTree`` less the first, the point itself; the JAX
+    package asks sklearn's ``NearestNeighbors`` for the same. Where two
+    candidates lie at the same distance, the two libraries may keep
+    different ones, and the weights then differ.
+    """
+    from scipy.spatial import cKDTree
+
+    _, idx = cKDTree(coords).query(coords, k=n_neighbors + 1)
     n = coords.shape[0]
     W = np.zeros((n, n))
     rows = np.repeat(np.arange(n), n_neighbors)
