@@ -23,7 +23,9 @@ one also with the opt-ins, which sends its width-N solves to the solve
 kernel, and the forced 100k model whitened) with ``forward(G_test=)``
 imputation; and ``WarpGPMLE``, the maximum-likelihood model; and the
 command line, ``python -m spatial_alignment_tpu_torch align`` and
-``predict`` in subprocesses on the m = 200 model's data. From 2,000
+``predict`` in subprocesses on the m = 200 model's data; and the
+distributed path (``spatial_alignment_tpu_torch.parallel``): a world of
+one on NCCL in this process, and two ranks on gloo in subprocesses. From 2,000
 points the models resolve the precision names to high/default, which runs
 their variance products in one TF32 pass (cuBLAS, and the quad kernels'
 one-pass build on the opt-in route). Every ``fit()`` runs its
@@ -177,6 +179,30 @@ JSON line each:
   data_host  the generators, warps, CSV loaders, k-NN filters, rotation,
              synthetic_*_like stand-ins and morans_i on the host: finite,
              of the JAX package's shapes
+  parallel_world_of_one  a world of one on NCCL in this process (a file
+             store under a temporary directory, make_mesh(1), distribute):
+             fit_m200's model (a new one, from the constructor) as a
+             distributed fit of 200 captured steps against the plain fit of
+             the same seed, losses and parameters bit for bit, then 200
+             more of each timed; 2 Cholesky launches and no plain call a
+             step, the collectives a step (calls, bytes); then the 100k
+             model (a new one) by the stratified distributed minibatch, 4 x
+             250 steps of B = 4096: finite falling losses, the aligned error
+             below the data's, the step's ms beside fit_mb100k's
+  parallel_two_ranks  tools/parallel_probe.py in two subprocesses, gloo with
+             CUDA tensors on the one card (NCCL refuses two ranks on one
+             device; gloo's steps run eagerly): the 2 x 1 mesh on fit_m200's
+             data (pad_multiple 2) with quad_diag_impl="pallas" (the quad
+             kernels launched on each rank's rows, no plain call), the 1 x 2
+             mesh (L = 10 as 5 + 5), and the 16 restarts of
+             multistart_m50's harness as 8 + 8. The two meshes first hold
+             one loss and backward at the start against one process at the
+             same draws: the loss at rel 2e-4, every rank's gradient block
+             at rtol 5e-3 and atol 1e-4 (1 + max |g|) a leaf (JAX's). Then
+             20 steps each: losses against one process within rel 2e-4 or,
+             where float32 spreads wider, twice the gap one ulp up opens;
+             the replicated parameters bit-equal across the ranks; the
+             collectives a step
   multistart_m50  fit_multistart at the JAX package's accuracy harness, full
              width (seed 0's draw, two views of 100, m = 50, 5 latent GPs;
              16 restarts of 10,000 epochs, consistency selection, top-2
@@ -229,6 +255,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -2978,6 +3005,140 @@ def phase_cli(dd200, kw200, epochs=CLI_EPOCHS):
          subprocesses=logs)
 
 
+# The distributed fits of the parallel phases: fit_m200's steps, and the
+# 100k model's 4 x 250 minibatch steps.
+PAR_STEPS = 200
+
+
+def phase_parallel_world_of_one(dd200, kw200, fit200, ddm, vim, fit_mb):
+    """A world of one on NCCL in this process: fit_m200's model as a
+    distributed fit against the plain fit bit for bit, with its launches,
+    collectives and step time; then the 100k model's stratified distributed
+    minibatch fit. The process group is destroyed when it returns."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from spatial_alignment_tpu_torch import VariationalGPSA, ops
+    from spatial_alignment_tpu_torch.parallel import distribute, make_mesh
+
+    def collectives(c, steps):
+        return {k.split(".", 1)[1]: v / steps for k, v in c.items()
+                if k.startswith("collectives.") and v}
+
+    def timed_fit(model, n, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = model.fit(n_epochs=n, lr=1e-2, S=5, **kw)
+        torch.cuda.synchronize()
+        return losses, (time.perf_counter() - t0) * 1e3 / n
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        plain = VariationalGPSA(dd200, **kw200)
+        model = distribute(twin(plain), mesh)
+        want, _ = timed_fit(plain, PAR_STEPS)
+        reset_counts()
+        got, _ = timed_fit(model, PAR_STEPS)
+        c = ops.read_counters()
+        launches, plain_calls = read_counts()
+        loop = model._train_loop_cache["loop"]
+        same = all(torch.equal(a, b) for a, b in zip(model.parameters(), plain.parameters()))
+        check(loop.graph is not None, "parallel_world_of_one: the distributed fit was not captured")
+        check(bool(np.array_equal(got, want)) and same,
+              "parallel_world_of_one: distributed losses or parameters differ from the plain "
+              f"fit's (largest loss gap {float(np.max(np.abs(got - want)))})")
+        check(launches["cholesky"] == 2 * PAR_STEPS and not any(plain_calls.values()),
+              f"parallel_world_of_one: {launches} launches, plain calls {plain_calls}")
+        coll = collectives(c, PAR_STEPS)
+        check(coll.get("all_reduce_world_calls") == 2 and set(coll) == {
+            "all_reduce_world_calls", "all_reduce_world_bytes"},
+            f"parallel_world_of_one: collectives a step {coll}")
+        # 200 more steps of each, timed on their cached loops (both captured)
+        want2, plain_ms = timed_fit(plain, PAR_STEPS)
+        got2, dist_ms = timed_fit(model, PAR_STEPS)
+        check(bool(np.array_equal(got2, want2)),
+              "parallel_world_of_one: the second fit's losses differ")
+        row200 = {"steps": 2 * PAR_STEPS, "captured": True, "losses_bit_equal": True,
+                  "params_bit_equal": True, "launches_per_step": {
+                      k: v / PAR_STEPS for k, v in launches.items()},
+                  "collectives_per_step": coll, "ms_per_step": dist_ms,
+                  "plain_ms_per_step": plain_ms,
+                  "fit_m200_ms_per_step": 1e3 / fit200["steps_per_s"],
+                  "graph_pool_bytes": graph_pool_bytes(loop),
+                  "loss_first": float(got[0]), "loss_last": float(got2[-1])}
+        del plain, model, loop
+
+        # The 100k model by the stratified distributed minibatch (a new one).
+        mb = distribute(VariationalGPSA(ddm, **MB100K, device="cuda"), mesh)
+        observed = aligned_error(ddm["expression"]["spatial_coords"], vim)
+        reset_counts()
+        runs = [timed_fit(mb, MB_STEPS // MB_CALLS, minibatch_size=MB_B) for _ in range(MB_CALLS)]
+        c = ops.read_counters()
+        launches, plain_calls = read_counts()
+        losses = np.concatenate([r[0] for r in runs])
+        first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+        err = aligned_error(mb.predict({"expression": ddm["expression"]["spatial_coords"]})[0][
+            "expression"], vim)
+        check(bool(np.isfinite(losses).all()) and last < first,
+              f"parallel_world_of_one mb100k: losses {first} -> {last}")
+        check(err < observed, f"parallel_world_of_one mb100k: aligned error {err} >= {observed}")
+        check(launches["cholesky"] == 2 * MB_STEPS and not any(plain_calls.values()),
+              f"parallel_world_of_one mb100k: {launches} launches, plain calls {plain_calls}")
+        check(mb._train_loop_cache["loop"].graph is not None,
+              "parallel_world_of_one mb100k: not captured")
+        rowmb = {"steps": MB_STEPS, "fit_calls": MB_CALLS, "minibatch_size": MB_B,
+                 "stratified": True, "loss_first50": first, "loss_last50": last,
+                 "aligned_error": err, "aligned_error_data": observed,
+                 "launches_per_step": {k: v / MB_STEPS for k, v in launches.items()},
+                 "collectives_per_step": collectives(c, MB_STEPS),
+                 "ms_per_step_last_call": runs[-1][1],
+                 "fit_mb100k_ms_per_step": 1e3 / fit_mb["steps_per_s"]}
+        del mb
+    finally:
+        gc.collect()
+        dist.destroy_process_group()
+    emit("parallel_world_of_one", backend="nccl", fit_m200=row200, mb100k=rowmb)
+
+
+def phase_parallel_two_ranks():
+    """tools/parallel_probe.py in two subprocesses on gloo with CUDA tensors
+    on this card (the probe holds each case and exits non-zero on a failed
+    check); its rank 0's JSON record."""
+    import os
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    cmd = lambda r: [sys.executable, str(ROOT / "tools" / "parallel_probe.py"), "--rank", str(r),
+                     "--world", "2", "--store", str(tmp / "store"), "--out", str(tmp / "out"),
+                     "--cases", "data2,model2,restarts2"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd(r), cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"parallel_two_ranks: rank {r} exit {p.returncode}: {err[-3000:]}")
+    record = json.loads(outs[0][0].strip().splitlines()[-1])
+    check(set(record["cases"]) == {"data2", "model2", "restarts2"} and record["backend"] == "gloo",
+          f"parallel_two_ranks: {record}")
+    for case in ("data2", "model2"):
+        row = record["cases"][case]
+        check(row["grad0_worst_ratio"] <= 1.0 and max(row["loss0_rel"]) <= 2e-4,
+              f"parallel_two_ranks {case}: the start's loss or gradients against one process")
+    quad = record["cases"]["data2"]["launches_per_step"]
+    check(quad.get("quad.fwd_launches", 0) > 0 and quad.get("quad.bwd_launches", 0) > 0
+          and not quad.get("quad.plain_calls"),
+          f"parallel_two_ranks data2: quad-diag kernels on the distributed path: {quad}")
+    emit("parallel_two_ranks", wall_seconds=wall, **record)
+
+
 def phase_data_host(dd200):
     """Every host-side function of ``data/`` and the repaired ``morans_i``
     on this machine's Python (no pandas, no sklearn needed): each result
@@ -3426,6 +3587,10 @@ def main() -> int:
     # spatial_alignment_tpu_torch align` / `predict`.
     phase_cli(dd200, kw200)
     phase_data_host(dd200)
+    # The distributed path: a world of one on NCCL here, then two ranks on
+    # gloo in subprocesses.
+    phase_parallel_world_of_one(dd200, kw200, fit200, ddm, vim, fit_mb)
+    phase_parallel_two_ranks()
 
     # fit_multistart, after every fit_* phase (its single-restart runs
     # overwrite the m = 200 models' parameters): the harness at m = 50, the

@@ -11,6 +11,12 @@ package's ``save()`` (an ``.npz`` with ``params/``, ``consts/`` and
 ``data/`` sections and a ``.json`` manifest holding the spec), read through
 :mod:`..utils.checkpoint`, the format both packages write.
 
+A checkpoint of a model the JAX package distributed over a model axis
+carries ``merged_factor_dispatch=False`` in its spec; the port loads it
+like any other (each modality's ``Omega_sqt_F`` slab then factored in its
+own call), and the loaded model distributes like any other
+(:func:`..parallel.distribute`).
+
 Optimizer state and RNG keys do not carry over: optax moments and
 ``jax.random`` keys have no counterpart in ``torch.optim`` and
 ``torch.Generator``, so a loaded model starts a fresh optimizer and a

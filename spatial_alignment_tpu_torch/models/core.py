@@ -1,7 +1,7 @@
 """GPSA core in PyTorch: factor pass, warp layer, data layer, ELBO.
 
-Counterpart of ``spatial_alignment_tpu/models/core.py`` on the
-merged-factor path, in the square, triangular and whitened variational
+Counterpart of ``spatial_alignment_tpu/models/core.py``, with the merged
+and the per-modality factor dispatch, in the square, triangular and whitened variational
 parameterizations, with the data layer's point-axis chunking
 (``spec.data_chunk_size``), minibatch SVI (``minibatch_spec``,
 ``subsample_batch``, ``negative_elbo_minibatch``) and imputation at chosen
@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -62,7 +62,7 @@ from ..ops.linalg import (
     tri_solve,
 )
 from ..ops.precision import matmul
-from .spec import ModelSpec, check_supported
+from .spec import ModelSpec
 
 _LOG_2PI = math.log(2.0 * math.pi)
 # The warp temperature: a float, or a 0-d float32 tensor on the batch's device.
@@ -310,8 +310,13 @@ def compute_factors(spec: ModelSpec, hp: dict) -> FactorPass:
     factors, so only the Kuu Grams are factored (and inverted, where the
     solve mode wants it, in the same fused call under
     ``fused_factor_inverse="fused"``).
+
+    ``spec.merged_factor_dispatch=False`` (set by
+    :func:`..parallel.distribute` when the model axis shards the
+    variational state, and carried by checkpoints) factors each modality's
+    ``Omega_sqt_F`` products in a call of their own; the other slabs merge
+    as before, and the Kuu inverses take their own call.
     """
-    check_supported(spec)
     eps = spec.diagonal_offset
     active = _active_views(spec)
     Va = len(active)
@@ -343,6 +348,25 @@ def compute_factors(spec: ModelSpec, hp: dict) -> FactorPass:
         return FactorPass(L_w, Om_w_tril, L_d, Om_d_tril, inv_w, inv_d)
 
     Om_w_flat = Om_w_sqt.reshape(Va * D, m_X, m_X)
+    if not spec.merged_factor_dispatch:
+        # Each modality's Omega_sqt_F slab in its own call (a rank of a
+        # model-sharded model holds its own latents of it); the Grams and the
+        # warp products still share one.
+        Om_d_tril = {n: factor_psd_cholesky(s, eps) for n, s in zip(mod_names, om_d_list)}
+        if m_X == m_G and Va > 0:
+            Lg, Lp = joint_factor_cholesky(torch.cat([Kuu_w, Kuu_d[None]], dim=0), Om_w_flat, eps)
+            L_w, L_d = Lg[:Va], Lg[Va]
+            Om_w_tril = Lp.reshape(Va, D, m_X, m_X)
+        else:
+            if Va:
+                L_w, Om_w_t = joint_factor_cholesky(Kuu_w, Om_w_flat, eps)
+                Om_w_tril = Om_w_t.reshape(Va, D, m_X, m_X)
+            else:
+                L_w, Om_w_tril = Kuu_w, Om_w_sqt
+            L_d = jittered_cholesky(Kuu_d, eps)
+        inv_w, inv_d = _kuu_inverses(spec, L_w, L_d, Va, m_X, m_G)
+        return FactorPass(L_w, Om_w_tril, L_d, Om_d_tril, inv_w, inv_d)
+
     Om_d_flat = torch.cat(om_d_list, dim=0)
     if m_X == m_G and Va > 0:
         n_inv = (Va + 1) if _wants_kuu_inverse(spec) else 0
@@ -500,6 +524,9 @@ def warp_layer(
 
 
 def _data_factors(spec: ModelSpec, hp: dict, factors):
+    """The data layer's (Kuu chol, {mod: Omega tril}, Kuu inverse), from
+    ``factors`` or from :func:`compute_factors` (whose unmerged branch gives
+    each modality's Omega_sqt_F slab its own call)."""
     if factors is None:
         fp = compute_factors(spec, hp)
         factors = (fp.data_Kuu_chol, fp.data_Om_tril, fp.data_Kuu_inv)
@@ -740,27 +767,52 @@ def gaussian_loglik_sum(y, f, scale, mask) -> torch.Tensor:
     return torch.sum(log_prob * mask[None, ..., None])
 
 
+def _expected_loglik_sum(y, mu, var, scale, mask) -> torch.Tensor:
+    """Masked sum of E_q[log Normal(y; f, scale)] for f ~ N(mu, var) (mu and
+    var (S, ...), y (...)): log N(y; mu, scale) - var / (2 scale^2)."""
+    lp = (
+        -0.5 * torch.square((y[None] - mu) / scale)
+        - 0.5 * var / torch.square(scale)
+        - torch.log(scale)
+        - 0.5 * _LOG_2PI
+    )
+    return torch.sum(lp * mask[None, ..., None])
+
+
 def kl_divergence(spec: ModelSpec, hp: dict, warp_aux: WarpAux, data_aux: DataAux) -> torch.Tensor:
     """Total KL over the warp and data variational posteriors.
 
-    One ``kl_mvn_chol`` call per matrix size; fixed views have no lanes.
+    One ``kl_mvn_chol`` call per matrix size (per modality's data terms
+    under ``merged_factor_dispatch=False``); fixed views have no lanes.
     Whitened mode: KL(q(w) || N(0, I)) per channel (``kl_whitened``), with
     no Kuu term, the same value as the square mode's for the same q."""
+    KL = torch.zeros((), dtype=hp["delta_G"].dtype, device=hp["delta_G"].device)
+    for _, part in kl_parts(spec, hp, warp_aux, data_aux):
+        KL = KL + part
+    return KL
+
+
+def kl_parts(spec: ModelSpec, hp: dict, warp_aux: WarpAux, data_aux: DataAux) -> list:
+    """The KL's terms in the order :func:`kl_divergence` adds them, as
+    [(modality name or None, 0-d tensor)]: a term that holds one modality's
+    data-layer KL alone (whitened mode, or ``merged_factor_dispatch=False``)
+    is named by it; the others (the warp terms, merged groups) by None."""
     mu_q = hp["delta_G"].transpose(-1, -2)  # (V, D, m)
     V, D, m_X = mu_q.shape
     active = _active_views(spec)
     Va = len(active)
     if spec.whitened_variational:
-        KL = torch.zeros((), dtype=mu_q.dtype, device=mu_q.device)
+        parts = []
         if Va:
             tk = lambda a: _take_active(spec, a, active)
-            KL = KL + kl_whitened(tk(mu_q), tk(warp_aux.Omega_tril)).sum()
+            parts.append((None, kl_whitened(tk(mu_q), tk(warp_aux.Omega_tril)).sum()))
         for mod in spec.modalities:
-            KL = KL + kl_whitened(
+            parts.append((mod.name, kl_whitened(
                 hp["delta_F"][mod.name].transpose(-1, -2), data_aux.Omega_tril[mod.name]
-            ).sum()
-        return KL
+            ).sum()))
+        return parts
     mu_p_w = warp_aux.mu_z.transpose(-1, -2)  # (V, D, m)
+    merged = spec.merged_factor_dispatch
     use_inv = (
         _wants_kuu_inverse(spec)
         and data_aux.Kuu_inv is not None
@@ -769,7 +821,7 @@ def kl_divergence(spec: ModelSpec, hp: dict, warp_aux: WarpAux, data_aux: DataAu
     groups: Dict[int, list] = {}
     if Va:
         tk = lambda a: _take_active(spec, a, active)
-        groups[m_X] = [
+        groups[m_X if merged else "warp"] = [
             (
                 tk(mu_q).reshape(Va * D, m_X),
                 tk(warp_aux.Omega_tril).reshape(Va * D, m_X, m_X),
@@ -784,7 +836,8 @@ def kl_divergence(spec: ModelSpec, hp: dict, warp_aux: WarpAux, data_aux: DataAu
     for mod in spec.modalities:
         delta = hp["delta_F"][mod.name]  # (m_G, L)
         L = delta.shape[-1]
-        groups.setdefault(m_G, []).append(
+        # Unmerged: each modality's terms in a call of their own.
+        groups.setdefault(m_G if merged else ("data", mod.name), []).append(
             (
                 delta.transpose(-1, -2),
                 data_aux.Omega_tril[mod.name],
@@ -793,29 +846,70 @@ def kl_divergence(spec: ModelSpec, hp: dict, warp_aux: WarpAux, data_aux: DataAu
                 data_aux.Kuu_inv.expand(L, m_G, m_G) if use_inv else None,
             )
         )
-    KL = torch.zeros((), dtype=mu_q.dtype, device=mu_q.device)
-    for entries in groups.values():
+    parts = []
+    for key, entries in groups.items():
         cat = lambda i: torch.cat([e[i] for e in entries], dim=0)
-        KL = KL + kl_mvn_chol(
+        parts.append((key[1] if isinstance(key, tuple) else None, kl_mvn_chol(
             cat(0), cat(1), cat(2), cat(3),
             chol_p_inv=cat(4) if use_inv else None, impl=spec.cholesky_impl,
-        ).sum()
-    return KL
+        ).sum()))
+    return parts
 
 
-def elbo_terms(spec: ModelSpec, hp: dict, batch, result: ForwardResult, S: int):
-    """(expected log-likelihood, KL divergence)."""
-    KL = kl_divergence(spec, hp, result.warp_aux, result.data_aux)
+def elbo_parts(
+    spec: ModelSpec,
+    hp: dict,
+    batch,
+    S: int,
+    temperature: Temperature = 1.0,
+    *,
+    generator: Optional[torch.Generator] = None,
+    warp_noise: Optional[torch.Tensor] = None,
+    data_noise: Optional[Dict[str, torch.Tensor]] = None,
+    reduce_obs: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+):
+    """The ELBO's terms: ([(modality name, expected log-likelihood)],
+    :func:`kl_parts`), each a 0-d tensor, in the order :func:`negative_elbo`
+    adds them.
+
+    With ``spec.analytic_data_likelihood`` the data-layer expectation is in
+    closed form and only the warp layer is sampled (``data_noise`` unused).
+    ``reduce_obs(name, t)`` maps each modality's observed samples (or, in
+    closed form, their mean and variance) before the likelihood: the
+    distributed step sums a model-sharded LMC modality's over its ranks.
+    """
+    if not spec.analytic_data_likelihood:
+        result = forward(
+            spec, hp, batch, S, temperature, generator=generator,
+            warp_noise=warp_noise, data_noise=data_noise,
+        )
+        warp_aux, data_aux = result.warp_aux, result.data_aux
+        obs = {n: (f,) for n, f in result.F_observed_samples.items()}
+    else:
+        X_all, _ = _concat_modalities(spec, batch)
+        fp = compute_factors(spec, hp)
+        _, G_sample_all, warp_aux = warp_layer(
+            spec, hp, X_all, S, temperature, noise=warp_noise,
+            factors=(fp.warp_Kuu_chol, fp.warp_Om_tril, fp.warp_Kuu_inv),
+            generator=generator,
+        )
+        G_samples = _split_modalities(spec, G_sample_all, axis=2)
+        mu_obs, var_obs, data_aux = data_layer_moments(
+            spec, hp, G_samples, factors=(fp.data_Kuu_chol, fp.data_Om_tril, fp.data_Kuu_inv)
+        )
+        obs = {n: (mu_obs[n], var_obs[n]) for n in mu_obs}
+    kl = kl_parts(spec, hp, warp_aux, data_aux)
+    if reduce_obs is not None:
+        obs = {n: tuple(reduce_obs(n, t) for t in ts) for n, ts in obs.items()}
     # Reference quirk kept: exp(noise_variance) + offset is the Normal scale.
     noise_pos = torch.exp(hp["noise_variance"]) + spec.diagonal_offset
-    LL = torch.zeros((), dtype=KL.dtype, device=KL.device)
+    loglik = _expected_loglik_sum if spec.analytic_data_likelihood else gaussian_loglik_sum
+    ll = []
     for mm, mod in enumerate(spec.modalities):
         scale = noise_pos[-spec.n_modalities + mm]
-        LL = LL + gaussian_loglik_sum(
-            batch[mod.name]["outputs"], result.F_observed_samples[mod.name],
-            scale, batch[mod.name]["mask"],
-        ) / S
-    return LL, KL
+        b = batch[mod.name]
+        ll.append((mod.name, loglik(b["outputs"], *obs[mod.name], scale, b["mask"]) / S))
+    return ll, kl
 
 
 def negative_elbo(
@@ -830,45 +924,18 @@ def negative_elbo(
     warp_noise: Optional[torch.Tensor] = None,
     data_noise: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """The training loss: -E[log p(y|f)] + KL.
-
-    With ``spec.analytic_data_likelihood`` the data-layer expectation is in
-    closed form and only the warp layer is sampled (``data_noise`` unused).
-    """
+    """The training loss: -E[log p(y|f)] + KL, the sum of
+    :func:`elbo_parts`."""
     hp = dict(consts)
     hp.update(params)
-    if not spec.analytic_data_likelihood:
-        result = forward(
-            spec, hp, batch, S, temperature, generator=generator,
-            warp_noise=warp_noise, data_noise=data_noise,
-        )
-        LL, KL = elbo_terms(spec, hp, batch, result, S)
-        return -LL + KL
-    X_all, _ = _concat_modalities(spec, batch)
-    fp = compute_factors(spec, hp)
-    _, G_sample_all, warp_aux = warp_layer(
-        spec, hp, X_all, S, temperature, noise=warp_noise,
-        factors=(fp.warp_Kuu_chol, fp.warp_Om_tril, fp.warp_Kuu_inv),
-        generator=generator,
-    )
-    G_samples = _split_modalities(spec, G_sample_all, axis=2)
-    mu_obs, var_obs, data_aux = data_layer_moments(
-        spec, hp, G_samples, factors=(fp.data_Kuu_chol, fp.data_Om_tril, fp.data_Kuu_inv)
-    )
-    KL = kl_divergence(spec, hp, warp_aux, data_aux)
-    noise_pos = torch.exp(hp["noise_variance"]) + spec.diagonal_offset
+    ll, kl = elbo_parts(spec, hp, batch, S, temperature, generator=generator,
+                        warp_noise=warp_noise, data_noise=data_noise)
+    KL = torch.zeros((), dtype=hp["delta_G"].dtype, device=hp["delta_G"].device)
+    for _, part in kl:
+        KL = KL + part
     LL = torch.zeros((), dtype=KL.dtype, device=KL.device)
-    for mm, mod in enumerate(spec.modalities):
-        scale = noise_pos[-spec.n_modalities + mm]
-        y, mask = batch[mod.name]["outputs"], batch[mod.name]["mask"]
-        # E_q[log N(y; f, s)] = log N(y; mu, s) - var / (2 s^2)
-        lp = (
-            -0.5 * torch.square((y[None] - mu_obs[mod.name]) / scale)
-            - 0.5 * var_obs[mod.name] / torch.square(scale)
-            - torch.log(scale)
-            - 0.5 * _LOG_2PI
-        )
-        LL = LL + torch.sum(lp * mask[None, ..., None]) / S
+    for _, part in ll:
+        LL = LL + part
     return -LL + KL
 
 

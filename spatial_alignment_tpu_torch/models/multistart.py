@@ -23,10 +23,13 @@ reseeded with the wave's first seed, in one draw a step
 the sample streams differ; and ``vectorized="auto"`` also needs an
 optimizer factory that builds one of :data:`.train.RESETTABLE_OPTIMIZERS`,
 each of which updates every element from its own gradient and state, so
-one optimizer over R-stacked parameters is R independent ones. Restarts are
-not spread over several devices. The R-wide loop is kept across the waves
-of one call and dropped when ``fit_multistart`` returns: its graph's pool
-is about R times one fit's, and a capture costs a fraction of a second.
+one optimizer over R-stacked parameters is R independent ones. On a
+distributed model (:func:`..parallel.distribute`) the restarts are spread
+over the ranks, each rank's as its own loop (``_fit_restarts_vectorized``),
+as the JAX package shards the restart axis over its devices. The R-wide
+loop is kept across the waves of one call and dropped when
+``fit_multistart`` returns: its graph's pool is about R times one fit's,
+and a capture costs a fraction of a second.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ class MultistartMixin:
             fixed_data_kernel_lengthscales=a["fixed_data_kernel_lengthscales"],
             device=self.device,
         )
-        copy_into(self.params, params)
+        self._commit_params_to_mesh(params)
         # consts and the spec are seed-independent: the objects are kept
         # when equal, so cached train loops survive restarts.
         if not tree_equal(consts, self.consts):
@@ -285,12 +288,18 @@ class MultistartMixin:
             return False
         return True
 
-    def _restart_step_loss(self, S: int, minibatch_size: Optional[int], R: int, params_R: dict):
+    def _restart_step_loss(self, S: int, minibatch_size: Optional[int], R: int, params_R: dict,
+                           block=None):
         """temp -> the (R,) losses of one step of R restarts on the stacked
         parameters ``params_R``: one draw of all R restarts' noise (and
         indices), then the per-restart loss ``vmap``-ed over the restart
-        axis. Holds no reference to the model (see ``_step_loss``)."""
-        spec, consts, batch, dev = self.spec, self.consts, self._batch, self.device
+        axis. ``block=(R_all, r0)``: the draw is the R_all restarts' and
+        these are restarts r0 .. r0 + R - 1 of it (restarts spread over the
+        ranks of a distributed model; slots past R_all, padding, take the
+        draws of the first restarts). Holds no reference to the model (see
+        ``_step_loss``)."""
+        spec, consts, dev = self.spec, self.consts, self.device
+        batch = self._batch if self._mesh is None else self._global_batch
         sub_spec = weights = None
         if minibatch_size is not None:
             sub_spec = core.minibatch_spec(spec, minibatch_size)
@@ -298,6 +307,19 @@ class MultistartMixin:
         gen, draw = self._gen, self._draw_restart_noise
         if draw is None:
             draw = lambda R_, S_: core.draw_restart_noise(spec, R_, S_, gen, dev, sub_spec)
+        if block is not None:
+            draw_all, (R_all, r0) = draw, block
+
+            def take(x):
+                if x is None:
+                    return None
+                if isinstance(x, dict):
+                    return {k: take(v) for k, v in x.items()}
+                while x.shape[0] < r0 + R:
+                    x = torch.cat([x, x[: r0 + R - x.shape[0]]])
+                return x[r0 : r0 + R]
+
+            draw = lambda R_, S_: tuple(take(x) for x in draw_all(R_all, S_))
 
         def one(params, temp, wn, dn, idx):
             if sub_spec is None:
@@ -315,14 +337,14 @@ class MultistartMixin:
 
         return loss
 
-    def _restart_loop(self, R, lr, S, optimizer, minibatch_size, values) -> TrainLoop:
+    def _restart_loop(self, R, lr, S, optimizer, minibatch_size, values, block=None) -> TrainLoop:
         """The R-wide :class:`.train.TrainLoop` with ``values`` (R-stacked
         initial parameters) written into its parameter tensors. Memoized as
         ``_cached_train_loop`` memoizes fit()'s loop, so waves of one width
         replay one captured graph: the same (R, lr, S, minibatch_size), Gram
         switch, optimizer factory, spec, generator, noise hook, consts and
         batch tensors."""
-        key = (R, lr, S, minibatch_size, gram_force())
+        key = (R, lr, S, minibatch_size, gram_force(), block)
         held = (self.spec, self._gen, self._draw_restart_noise, *leaves(self.consts),
                 *leaves(self._batch))
         cache = self.__dict__.get("_vec_loop_cache")
@@ -338,7 +360,7 @@ class MultistartMixin:
         self.__dict__.pop("_vec_loop_cache", None)  # free the old graph first
         params_R = tree_map(lambda v: v.detach().clone().requires_grad_(True), values)
         loop = TrainLoop(named_leaves(params_R),
-                         self._restart_step_loss(S, minibatch_size, R, params_R),
+                         self._restart_step_loss(S, minibatch_size, R, params_R, block),
                          self._optimizer(optimizer, lr, leaves(params_R)),
                          self._gen, scheduled=hasattr(optimizer, "lr_schedule"), width=R)
         self._vec_loop_cache = {"key": key, "optimizer": optimizer, "held": held,
@@ -397,16 +419,32 @@ class MultistartMixin:
         Returns (stacked params {leaf: (R, ...)}, losses (R, T)); the
         stacked tensors are the loop's own, which the next wave overwrites.
 
+        On a distributed model of n ranks, R is padded to a multiple of n
+        and each rank trains its R/n restarts (seeds ``seed0 + rank * R/n``
+        on) as its own R/n-wide loop on the full batch, with no collective
+        in the step; each takes its restarts' part of the R-wide draw every
+        rank makes (so each restart sees what it sees in one process). The
+        losses and parameters are then gathered over the ranks and the
+        padding sliced off.
+
         ``init_transforms``: optional per-restart list, each entry None (a
         fresh random init) or a per-view affine-seed list from
         ``_warp_init_transforms`` (applied via ``_apply_warp_seed``).
         """
-        values = self._restart_inits(n_restarts, seed0, init_transforms)
-        loop = self._restart_loop(n_restarts, lr, S, optimizer, minibatch_size, values)
+        world = self._comms["world"] if self._mesh is not None else None
+        R, block, r0 = n_restarts, None, 0
+        if world is not None:
+            R = -(-n_restarts // world.size)  # this rank's restarts
+            r0 = torch.distributed.get_rank() * R
+            block = (n_restarts, r0)
+            if init_transforms is not None:
+                init_transforms = (list(init_transforms) + [None] * world.size * R)[r0 : r0 + R]
+        values = self._restart_inits(R, seed0 + r0, init_transforms)
+        loop = self._restart_loop(R, lr, S, optimizer, minibatch_size, values, block)
         loop.reset_state()
         self._gen.manual_seed(int(seed0))
         lr_schedule = getattr(optimizer, "lr_schedule", None)
-        losses = np.zeros((n_epochs, n_restarts), np.float64)
+        losses = np.zeros((n_epochs, R), np.float64)
         t = 0
         while t < n_epochs:
             n = min(chunk_size, n_epochs - t)
@@ -417,7 +455,13 @@ class MultistartMixin:
                 temps = np.ones(n, np.float32)
             losses[t : t + n] = loop.run(temps, lr_schedule(steps) if lr_schedule else None)
             t += n
-        return self._vec_loop_cache["params"], losses.T
+        params_R = self._vec_loop_cache["params"]
+        if world is None:
+            return params_R, losses.T
+        with torch.no_grad():
+            params_R = tree_map(lambda x: world.all_gather(x.detach())[:n_restarts], params_R)
+            losses = world.all_gather(torch.from_numpy(losses).to(self.device), dim=1)
+        return params_R, losses.cpu().numpy()[:, :n_restarts].T
 
     # ------------------------------------------------------------------
     # fit_multistart
@@ -623,12 +667,12 @@ class MultistartMixin:
                         copy_into(self.params,
                                    self._apply_warp_seed(self.params, init_transforms[r]))
                     losses = self.fit(n_epochs=n_epochs, **fit_kwargs)
-                    yield r, _snapshot(self.params), losses
+                    yield r, _snapshot(self._full_params()), losses
 
         def keep(params_r):
             """The model holds ``params_r``; the last fit's optimizer and
             generator state belong to another restart's trajectory."""
-            copy_into(self.params, params_r)
+            self._commit_params_to_mesh(params_r)
             self._opt_state = self._rng_state = None
 
         # The R-wide loop serves this call's waves only: its graph's pool
@@ -649,7 +693,7 @@ class MultistartMixin:
                 runs = []
 
                 def score_run(r, params_r, losses):
-                    copy_into(self.params, params_r)
+                    self._commit_params_to_mesh(params_r)
                     G_means, _, _, _ = self.forward(X_by_mod, vi, Ns)
                     G_np = {k: np.asarray(v) for k, v in G_means.items()}
                     score = self._alignment_consistency(G_np)

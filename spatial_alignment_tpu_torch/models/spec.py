@@ -149,19 +149,6 @@ def spec_from_dict(d: dict) -> ModelSpec:
     )
 
 
-def check_supported(spec: ModelSpec) -> None:
-    """Raise NotImplementedError for spec options the port does not have yet,
-    naming the ROADMAP.md item that ports each."""
-    unsupported = [
-        (not spec.merged_factor_dispatch, "merged_factor_dispatch=False", "A10"),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet (ROADMAP.md {item})"
-            )
-
-
 def _as_numpy(x) -> np.ndarray:
     """Accept numpy arrays and torch tensors."""
     if isinstance(x, torch.Tensor):

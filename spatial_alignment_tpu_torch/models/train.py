@@ -190,9 +190,11 @@ class TrainLoop:
     noise from ``generator``; ``scheduled``: every parameter group's
     learning rate is a tensor that each step sets from the chunk's
     schedule; ``width``: ``loss_fn`` returns that many losses, one a
-    restart, and the step minimizes their sum. Raises when the optimizer's
-    state cannot be reset in place (:func:`check_resettable`), and on CUDA
-    when the step cannot be captured.
+    restart, and the step minimizes their sum. ``capture=False`` runs the
+    step eagerly on CUDA too (a distributed step on a gloo group, whose
+    collectives cannot be captured; NCCL's can). Raises when the
+    optimizer's state cannot be reset in place (:func:`check_resettable`),
+    and on CUDA when the step cannot be captured.
     """
 
     def __init__(
@@ -203,6 +205,7 @@ class TrainLoop:
         generator: torch.Generator,
         scheduled: bool = False,
         width: Optional[int] = None,
+        capture: bool = True,
     ):
         check_resettable(optimizer)
         self.width = width
@@ -224,7 +227,7 @@ class TrainLoop:
         self.per_step: dict = {}
         counts = ops.read_counters()
         self._prime()
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and capture:
             self._capture()
         ops.set_counters(counts)
 

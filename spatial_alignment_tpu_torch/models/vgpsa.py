@@ -17,8 +17,7 @@ torch.optim.Optimizer`` instead of optax transformations (the default is
 instead of ``jax.random`` (different sample streams for the same seed), and
 a numpy k-means instead of sklearn's. Checkpoints share the JAX package's
 format and its ``params`` / ``consts`` / ``data`` sections
-(:mod:`..utils.checkpoint`). Options the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+(:mod:`..utils.checkpoint`).
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
 from .._device import resolve_device
 from ..ops.gram import gram_force
@@ -43,7 +43,6 @@ from .spec import (
     ModelSpec,
     _as_numpy,
     build_spec,
-    check_supported,
     create_view_idx_dict,
     pack_batch,
     pack_coords,
@@ -72,7 +71,20 @@ class VariationalGPSA(MultistartMixin):
 
     ``device=None`` means ``"cuda"``; without a CUDA device that raises,
     and the caller passes ``device="cpu"`` to run the plain kernels.
+
+    After :func:`..parallel.distribute` the model holds this rank's blocks
+    of the params and the batch (``_mesh`` is the mesh): ``fit`` and
+    ``make_train_step`` run the explicit-collective step of
+    :mod:`..parallel.shardmap`, ``forward``, ``predict`` and ``neg_elbo``
+    give full-size results on every rank, ``save`` writes the full state
+    from rank 0, and ``fit_multistart`` spreads its restarts over the ranks.
     """
+
+    # Set by parallel.distribute: the mesh, its groups, and the full packed
+    # batch (restarts train on it, checkpoints carry it).
+    _mesh = None
+    _comms = None
+    _global_batch = None
 
     def __init__(
         self,
@@ -140,7 +152,6 @@ class VariationalGPSA(MultistartMixin):
             quad_diag_impl=quad_diag_impl,
             fused_factor_inverse=fused_factor_inverse,
         )
-        check_supported(spec)
         params, consts, self.spec = init_params(
             spec,
             data_dict,
@@ -313,7 +324,7 @@ class VariationalGPSA(MultistartMixin):
         if view_idx is None:
             view_idx = self.view_idx
         spec = self._eval_spec(view_idx)
-        hp = merge_hyperparams(self.params, self.consts)
+        hp = merge_hyperparams(self._full_params(), self.consts)
         if G_test is not None:
             G_test = {m: torch.as_tensor(np.asarray(_as_numpy(v), np.float32), device=self.device)
                       for m, v in G_test.items()}
@@ -342,7 +353,7 @@ class VariationalGPSA(MultistartMixin):
         if view_idx is None:
             view_idx = self.view_idx
         spec = self._eval_spec(view_idx)
-        hp = merge_hyperparams(self.params, self.consts)
+        hp = merge_hyperparams(self._full_params(), self.consts)
         with torch.no_grad():
             G_means, F_mean, F_var = core.predict_mean(
                 spec, hp, self._coords_batch(spec, X_spatial)
@@ -375,13 +386,61 @@ class VariationalGPSA(MultistartMixin):
         return -LL + KL
 
     def neg_elbo(self, S: int = 5) -> float:
-        """One ELBO evaluation on the training batch."""
+        """One ELBO evaluation on the training batch (on a distributed model
+        the global one, on every rank)."""
         with torch.no_grad():
-            return float(
-                core.negative_elbo(
-                    self.spec, self.params, self.consts, self._batch, S, generator=self._gen
-                )
-            )
+            return float(self._loss_fn(None)(self.params, S, 1.0, None, None))
+
+    # ------------------------------------------------------------------
+    # The distributed layout (parallel.distribute)
+    # ------------------------------------------------------------------
+    def _placements(self):
+        from ..parallel.sharding import param_shardings
+
+        return param_shardings(self.spec, self.params, self._mesh)
+
+    def _full_params(self) -> dict:
+        """The full parameters: ``self.params``, or on a distributed model
+        its blocks gathered over the mesh (the same on every rank)."""
+        if self._mesh is None:
+            return self.params
+        from ..parallel.sharding import gather_block
+
+        with torch.no_grad():
+            return tree_map(lambda t, p: gather_block(t.detach(), p, self._mesh, self._comms),
+                            self.params, self._placements())
+
+    def _commit_params_to_mesh(self, params: dict):
+        """Write full parameters ``params`` into the model's tensors in place:
+        on a distributed model each rank's blocks of them (a multistart
+        winner, a fresh init, a checkpoint)."""
+        if self._mesh is not None:
+            from ..parallel.sharding import local_block
+
+            params = tree_map(lambda t, p: local_block(t, p, self._mesh), params,
+                              self._placements())
+        copy_into(self.params, params)
+
+    def _opt_state_layout(self, flat: dict, gather: bool) -> dict:
+        """An optimizer state {"<leaf path>/<name>": tensor} of the rank's
+        blocks gathered to full leaves (``gather``), or of full leaves cut to
+        the rank's blocks; scalars (a step count) stay as they are."""
+        if self._mesh is None:
+            return flat
+        from ..parallel.sharding import gather_block, local_block
+
+        placed = dict(named_leaves(self._placements()))
+        local = dict(named_leaves(self.params))
+        out = {}
+        for key, value in flat.items():
+            path = key.rsplit("/", 1)[0]
+            p = placed.get(path)
+            if gather and p is not None and tuple(value.shape) == tuple(local[path].shape):
+                value = gather_block(value, p, self._mesh, self._comms)
+            elif not gather and p is not None and np.ndim(value) == local[path].ndim:
+                value = local_block(torch.as_tensor(np.asarray(value)), p, self._mesh).numpy()
+            out[key] = value
+        return out
 
     # ------------------------------------------------------------------
     # Training
@@ -397,6 +456,14 @@ class VariationalGPSA(MultistartMixin):
         training batch; the minibatch variant subsamples ``minibatch_size``
         points per view on the device each call (``core.subsample_batch``)."""
         spec, consts, batch, gen = self.spec, self.consts, self._batch, self._gen
+        if self._mesh is not None:
+            # The rank's blocks through the explicit-collective step; the
+            # minibatch is the stratified per-shard sample (JAX vgpsa.py
+            # _loss_fn), so its gather needs no communication.
+            from ..parallel.shardmap import Executor
+
+            ex = Executor(spec, self._mesh, consts, minibatch_size)
+            return lambda params, S, temp, wn, dn: ex.loss(params, batch, S, temp, gen, wn, dn)
         if minibatch_size is None:
             return lambda params, S, temp, wn, dn: core.negative_elbo(
                 spec, params, consts, batch, S, temp, generator=gen, warp_noise=wn, data_noise=dn
@@ -478,12 +545,16 @@ class VariationalGPSA(MultistartMixin):
         replayed once a step, on the CPU run eagerly. ``loop.run(temps,
         lrs)`` runs ``len(temps)`` steps and returns their losses;
         ``loop.optimizer`` is the optimizer, its state fresh."""
+        # gloo's collectives cannot be captured: a distributed step on it
+        # runs eagerly.
+        capture = self._mesh is None or torch.distributed.get_backend() == "nccl"
         return TrainLoop(
             named_leaves(self.params),
             self._step_loss(S, minibatch_size),
             self._optimizer(optimizer, lr),
             self._gen,
             scheduled=hasattr(optimizer, "lr_schedule"),
+            capture=capture,
         )
 
     def _cached_train_loop(self, lr, S, optimizer, minibatch_size) -> TrainLoop:
@@ -584,7 +655,7 @@ class VariationalGPSA(MultistartMixin):
         lr_schedule = getattr(optimizer, "lr_schedule", None)
         loop = self._cached_train_loop(lr, S, optimizer, minibatch_size)
         if blob is not None:
-            loop.load_state(blob["torch_opt"])
+            loop.load_state(self._opt_state_layout(blob["torch_opt"], gather=False))
         else:
             loop.reset_state()
 
@@ -653,17 +724,23 @@ class VariationalGPSA(MultistartMixin):
         ``fit(resume_from=path)`` continues exactly. The JAX package's
         ``VariationalGPSA.load`` reads it (without the training state)."""
         with_opt = include_opt and self._opt_state is not None
-        save_checkpoint(
-            path,
-            self.params,
-            self.consts,
-            step=step if step is not None else self._epoch,
-            extra={"seed": self._seed, "torch_rng_device": self.device.type, **(extra or {})},
-            spec=self.spec,
-            batch=self._batch if include_data else None,
-            opt_state=self._opt_state if with_opt else None,
-            rng_state=self._rng_state if with_opt else None,
-        )
+        params = self._full_params()
+        opt_state = self._opt_state_layout(self._opt_state, gather=True) if with_opt else None
+        batch = self._batch if self._mesh is None else self._global_batch
+        if self._mesh is None or torch.distributed.get_rank() == 0:
+            save_checkpoint(
+                path,
+                params,
+                self.consts,
+                step=step if step is not None else self._epoch,
+                extra={"seed": self._seed, "torch_rng_device": self.device.type, **(extra or {})},
+                spec=self.spec,
+                batch=batch if include_data else None,
+                opt_state=opt_state,
+                rng_state=self._rng_state if with_opt else None,
+            )
+        if self._mesh is not None:
+            self._comms["world"].barrier()  # the file exists when save returns
 
     @_hybridmethod
     def load(self_or_cls, path: str, device=None):
@@ -688,7 +765,6 @@ class VariationalGPSA(MultistartMixin):
                 "the model and call model.load(path) instead"
             )
         spec = spec_from_dict(spec_dict)
-        check_supported(spec)
         dev = resolve_device(device)
         params = tensors_from_numpy(nest(blob["params"]), dev)
         params.setdefault("W", {})  # an empty subtree (no LMC) has no npz entries
@@ -709,8 +785,9 @@ class VariationalGPSA(MultistartMixin):
 
     def _assign(self, blob: dict):
         """Copy a checkpoint's params and consts into the model's tensors
-        (in place: a captured step keeps reading them)."""
-        copy_into(self.params, unflatten_into(self.params, blob["params"]))
+        (in place: a captured step keeps reading them; on a distributed
+        model the rank's blocks of them)."""
+        self._commit_params_to_mesh(unflatten_into(self._full_params(), blob["params"]))
         copy_into(self.consts, unflatten_into(self.consts, blob["consts"]))
 
     def _restore_training_state(self, blob: dict, require_generator: bool = False):
@@ -778,6 +855,12 @@ class VariationalGPSA(MultistartMixin):
                     "reinitialize()/multistart rebuild the same model"
                 )
         self._batch = pack_batch(self.spec, data_dict, self.device)
+        if self._mesh is not None:
+            from ..parallel.sharding import batch_shardings, local_block
+
+            self._global_batch = self._batch
+            self._batch = tree_map(lambda t, p: local_block(t, p, self._mesh), self._batch,
+                                   batch_shardings(self.spec, self._mesh))
         self._init_args = dict(data_dict=data_dict, data_init=data_init, grid_init=grid_init,
                                **fixed)
         # Any cached train loop closed over the old (absent) batch.

@@ -3,18 +3,29 @@
 Each kernel module names its launch and plain-call counters in
 ``COUNTERS``; :func:`read_counters`, :func:`set_counters` and
 :func:`add_counters` act on all of them at once, keyed ``"<module>.<name>"``
-(e.g. ``"quad.bwd_launches"``).
+(e.g. ``"quad.bwd_launches"``). A module outside this package whose
+counters belong with them (the distributed path's collectives) adds itself
+with :func:`register_counted` when it is imported.
 """
 
 from __future__ import annotations
 
 import importlib
 
-_COUNTED = ("cholesky", "factor", "gram", "quad", "trisolve")
+# Counter prefix -> kernel module, relative to this package.
+_COUNTED = {"cholesky": ".cholesky", "factor": ".factor", "gram": ".gram", "quad": ".quad",
+            "trisolve": ".trisolve"}
+_REGISTERED = {}
+
+
+def register_counted(name: str, module) -> None:
+    """Count ``module``'s ``COUNTERS`` under ``"<name>.<counter>"``."""
+    _REGISTERED[name] = module
 
 
 def _counted_modules():
-    return [(name, importlib.import_module(f".{name}", __name__)) for name in _COUNTED]
+    return [(name, importlib.import_module(path, __name__)) for name, path in _COUNTED.items()
+            ] + list(_REGISTERED.items())
 
 
 def read_counters() -> dict:

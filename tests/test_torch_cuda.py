@@ -1144,3 +1144,61 @@ def test_cuda_mle_fit_is_captured_and_matches_the_cpu(cuda_device):
     np.testing.assert_allclose(got, want, rtol=1e-3)
     G = card.G["expression"]
     np.testing.assert_array_equal(G[vi[0]], X.astype(np.float32)[vi[0]])
+
+
+_NCCL_WORLD_OF_ONE = r"""
+import os, sys, json
+import numpy as np, torch, torch.distributed as dist
+sys.path.insert(0, {root!r})
+from spatial_alignment_tpu_torch import VariationalGPSA, ops
+from spatial_alignment_tpu_torch.parallel import distribute, make_mesh
+
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="file://" + {store!r}, rank=0, world_size=1)
+rng = np.random.default_rng(3)
+X1 = rng.uniform(0, 10, (60, 2)).astype(np.float32)
+X = np.concatenate([X1, X1 + 0.1 * rng.standard_normal(X1.shape).astype(np.float32)])
+Y = np.stack([np.sin(X[:, 0] * (j + 1) / 3.0) + np.cos(X[:, 1]) for j in range(4)], 1)
+dd = {{"expression": {{"spatial_coords": X, "outputs": Y.astype(np.float32),
+                       "n_samples_list": [60, 60]}}}}
+kw = dict(m_X_per_view=24, m_G=24, n_latent_gps={{"expression": 2}}, fixed_view_idx=0,
+          device="cuda")
+plain, captured, eager = (VariationalGPSA(dd, **kw) for _ in range(3))
+mesh = make_mesh(1)
+distribute(captured, mesh)
+distribute(eager, mesh)
+want = plain.fit(n_epochs=20, S=2)
+ops.set_counters(dict.fromkeys(ops.read_counters(), 0))
+got = captured.fit(n_epochs=20, S=2)
+counts = ops.read_counters()
+step, _ = eager.make_train_step(S=2)
+eager_losses = [float(step()) for _ in range(20)]
+same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+print(json.dumps({{
+    "graph": captured._train_loop_cache["loop"].graph is not None,
+    "plain_equal": bool(np.array_equal(got, want)) and same(captured, plain),
+    "eager_equal": bool(np.array_equal(got, np.array(eager_losses))) and same(captured, eager),
+    "cholesky": counts["cholesky.launches"], "plain_calls": counts["cholesky.plain_calls"],
+    "all_reduce": counts["collectives.all_reduce_world_calls"]}}))
+dist.destroy_process_group()
+"""
+
+
+def test_cuda_nccl_world_of_one_captured_fit_matches_eager_and_plain(cuda_device, tmp_path):
+    """A world of one on NCCL (a subprocess: the group is the process's):
+    the distributed fit() is captured with its collectives inside the graph,
+    and its losses and parameters equal the eager make_train_step steps and
+    the plain fit bit for bit; 2 Cholesky launches and 2 all-reduces a step."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _NCCL_WORLD_OF_ONE.format(root=root, store=str(tmp_path / "store"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"graph": True, "plain_equal": True, "eager_equal": True,
+                   "cholesky": 2 * 20, "plain_calls": 0, "all_reduce": 2 * 20}, got

@@ -14,13 +14,18 @@ Tolerance: per-step losses rel 1e-5, final parameters rel 1e-4 per leaf
 float32 gradient differences of ~1e-5 carry into the updates unshrunk.
 """
 
+import math
+
 import numpy as np
 import pytest
 import jax
+import jax.numpy as jnp
 import optax
 import torch
 
+import spatial_alignment_tpu as sat
 from spatial_alignment_tpu.models import core as jcore
+from spatial_alignment_tpu_torch.models import core as tcore
 from spatial_alignment_tpu_torch import VariationalGPSA
 from spatial_alignment_tpu_torch.data import generate_twod_data
 from spatial_alignment_tpu_torch.models.params import init_params
@@ -107,21 +112,29 @@ def test_builders_default_to_the_card(monkeypatch):
         assert any(isinstance(t, torch.Tensor) for t in tree.values())
 
 
-def _load_unmerged(model, tmp_path):
-    """VariationalGPSA.load of a checkpoint whose spec clears
-    merged_factor_dispatch, as the JAX package's sharded models save it."""
-    model.spec = model.spec.replace(merged_factor_dispatch=False)
-    path = str(tmp_path / "unmerged.npz")
-    model.save(path)
-    return VariationalGPSA.load(path, device="cpu")
-
-
-@pytest.mark.parametrize("call", [_load_unmerged], ids=["load_merged_factor_dispatch_false"])
-def test_entry_points_outside_the_slice_raise(call, tmp_path):
+def test_unmerged_checkpoint_loads_trains_and_gives_jax_loss(tmp_path):
+    """A checkpoint whose spec clears merged_factor_dispatch, as the JAX
+    package's model-sharded models save it, loads into the port, gives the
+    JAX package's loss at the same draws (rel 1e-5) and trains."""
     dd = make_two_view_data(n_per_view=12, n_outputs=2)
-    model = VariationalGPSA(dd, m_X_per_view=4, m_G=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        call(model, tmp_path)
+    jm = sat.VariationalGPSA(dd, m_X_per_view=4, m_G=4, n_latent_gps={"expression": 2})
+    jm.spec = jm.spec.replace(merged_factor_dispatch=False)
+    jm.params = dict(jm.params)
+    for name in ("warp_kernel_lengthscales", "data_kernel_lengthscale"):
+        jm.params[name] = jnp.full_like(jm.params[name], math.log(2.0))
+    path = str(tmp_path / "unmerged.npz")
+    jm.save(path)
+    tm = VariationalGPSA.load(path, device="cpu")
+    assert tm.spec.merged_factor_dispatch is False
+    key, S = jax.random.PRNGKey(4), 2
+    want = float(jcore.negative_elbo(jm.spec, jm.params, jm.consts, jm._batch, key, S))
+    warp, data = jax_noise(jm.spec, key, S)
+    with torch.no_grad():
+        got = float(tcore.negative_elbo(tm.spec, tm.params, tm.consts, tm._batch, S,
+                                        warp_noise=warp, data_noise=data))
+    assert abs(got - want) <= 1e-5 * abs(want)
+    losses = tm.fit(n_epochs=30, lr=1e-2, S=2)
+    assert np.isfinite(losses).all() and losses[-10:].mean() < losses[:10].mean()
 
 
 def test_fit_average_last_and_callback():

@@ -342,14 +342,29 @@ def test_jax_checkpoint_round_trip(tmp_path):
     assert np.isfinite(tm.neg_elbo(S=2))
 
 
-@pytest.mark.parametrize("kw", [{"merged_factor_dispatch": False}],
-                         ids=lambda kw: next(iter(kw)))
-def test_options_outside_the_slice_raise(kw):
-    """The one spec option still refused (A10, the JAX package's sharded
-    variational state) raises where the factor pass checks the spec; the
-    constructor has no such argument."""
-    dd = make_two_view_data(n_per_view=12, n_outputs=2)
-    model = tp.VariationalGPSA(dd, m_X_per_view=4, m_G=4, device="cpu")
-    spec = dataclasses.replace(model.spec, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        tcore.compute_factors(spec, {**model.consts, **model.params})
+@pytest.mark.parametrize("mode", ["kl_inverse", "mixed"])
+def test_compute_factors_unmerged_matches_jax(mode):
+    """merged_factor_dispatch=False (the JAX package's sharded models clear
+    it, and their checkpoints carry it): each modality's Omega_sqt_F slab
+    factored in its own call; every factor equals JAX's unmerged pass and
+    the port's merged pass (rel 1e-5)."""
+    dd = make_two_view_data(n_per_view=12, n_outputs=3)
+    kw = dict(m_X_per_view=6, m_G=6, n_latent_gps={"expression": 2}, fixed_view_idx=0,
+              svgp_solve_mode=mode)
+    jm, tm = model_pair(dd, **kw)
+    jspec_u = dataclasses.replace(jm.spec, merged_factor_dispatch=False)
+    tspec_u = dataclasses.replace(tm.spec, merged_factor_dispatch=False)
+    want = jax.jit(jcore.compute_factors, static_argnums=0)(jspec_u, {**jm.consts, **jm.params})
+    hp = {**tm.consts, **tm.params}
+    with torch.no_grad():
+        got = tcore.compute_factors(tspec_u, hp)
+        merged = tcore.compute_factors(tm.spec, hp)
+    for name in got._fields:
+        g, w, mg = getattr(got, name), getattr(want, name), getattr(merged, name)
+        if isinstance(g, dict):
+            g, w, mg = g["expression"], w["expression"], mg["expression"]
+        if g is None:
+            assert w is None and mg is None, name
+            continue
+        assert _rel(g, w) <= 1e-5, name
+        assert _rel(g, mg) <= 1e-5, name

@@ -40,7 +40,7 @@ import spatial_alignment_tpu as sat
 import spatial_alignment_tpu_torch as tp
 from spatial_alignment_tpu_torch.models import core as tcore
 from spatial_alignment_tpu_torch.models.convert import params_from_numpy
-from spatial_alignment_tpu_torch.models.spec import build_spec, check_supported
+from spatial_alignment_tpu_torch.models.spec import build_spec
 from spatial_alignment_tpu_torch.ops import factor, quad, trisolve
 
 from conftest import make_two_view_data
@@ -75,9 +75,13 @@ def _pair(dd, mode):
 
 
 def test_check_supported_accepts_the_opt_ins():
+    """The port refuses no spec option (the last refusal went with
+    merged_factor_dispatch=False's port): the opt-in spec factors."""
     dd = make_two_view_data(n_per_view=12, n_outputs=2)
     spec = build_spec(dd, m_X_per_view=4, m_G=4, **OPT_INS)
-    check_supported(spec)  # raises NotImplementedError for an unported option
+    model = tp.VariationalGPSA(dd, m_X_per_view=4, m_G=4, device="cpu", **OPT_INS)
+    fp = tcore.compute_factors(spec, {**model.consts, **model.params})
+    assert all(torch.isfinite(t).all() for t in (fp.warp_Kuu_chol, fp.data_Kuu_chol))
     assert (spec.cholesky_impl, spec.quad_diag_impl, spec.fused_factor_inverse) == (
         "pallas", "pallas", "fused"
     )

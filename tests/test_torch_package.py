@@ -49,6 +49,11 @@ import spatial_alignment_tpu_torch.data.realdata
 import spatial_alignment_tpu_torch.plotting
 import spatial_alignment_tpu_torch.cli
 import spatial_alignment_tpu_torch.__main__
+import spatial_alignment_tpu_torch.parallel
+import spatial_alignment_tpu_torch.parallel.sharding
+import spatial_alignment_tpu_torch.parallel.shardmap
+import torch.distributed
+assert not torch.distributed.is_initialized()
 print(json.dumps(sorted(sys.modules)))
 """
 
