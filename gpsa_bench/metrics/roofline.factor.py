@@ -1,0 +1,17 @@
+"""Roofline share of one operation in the cell's step: the fused Cholesky and inverse
+(``ops.factor.cholesky_and_inverse``), forward, at fp32's peak.
+
+The harness spies on the entry points in ``OP["patch"]`` during one eager
+loss and gradient of the cell's model, keeps every call's inputs, and
+times each call alone by CUDA events."""
+
+from gpsa_bench.metrics._roofline import share
+from gpsa_bench.work import factor
+
+OP = {"name": "factor", "backward": False,
+      "patch": [("spatial_alignment_tpu_torch.ops.factor", "cholesky_and_inverse")]}
+
+
+def read(ctx):
+    return share(ctx["ops"].get(OP["name"]), factor.forward, ctx["peaks"],
+                 lambda args: "fp32", "fwd")
