@@ -62,6 +62,7 @@ from ..ops.linalg import (
     tri_solve,
 )
 from ..ops.precision import matmul
+from ..utils import profiling
 from .spec import ModelSpec
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -300,6 +301,7 @@ def _kuu_inverses(spec: ModelSpec, L_w, L_d, Va: int, m_X: int, m_G: int):
     return inv_w, tri_inverse(L_d, impl=impl)
 
 
+@profiling.spanned("gpsa.factors")
 def compute_factors(spec: ModelSpec, hp: dict) -> FactorPass:
     """One batched factorization pass over all of the step's m x m matrices.
 
@@ -427,6 +429,7 @@ def _fill_views(spec: ModelSpec, active, values: Optional[torch.Tensor], filler:
     )
 
 
+@profiling.spanned("gpsa.warp")
 def warp_layer(
     spec: ModelSpec,
     hp: dict,
@@ -600,6 +603,7 @@ def _over_points(spec: ModelSpec, hp: dict, G: torch.Tensor, per_chunk, *extra):
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
+@profiling.spanned("gpsa.data")
 def data_layer(
     spec: ModelSpec,
     hp: dict,
@@ -637,6 +641,7 @@ def data_layer(
     return F_latent, F_obs, DataAux(L_F, Om_tril_F, Linv_F)
 
 
+@profiling.spanned("gpsa.data")
 def data_layer_moments(
     spec: ModelSpec,
     hp: dict,
@@ -898,17 +903,18 @@ def elbo_parts(
             spec, hp, G_samples, factors=(fp.data_Kuu_chol, fp.data_Om_tril, fp.data_Kuu_inv)
         )
         obs = {n: (mu_obs[n], var_obs[n]) for n in mu_obs}
-    kl = kl_parts(spec, hp, warp_aux, data_aux)
-    if reduce_obs is not None:
-        obs = {n: tuple(reduce_obs(n, t) for t in ts) for n, ts in obs.items()}
-    # Reference quirk kept: exp(noise_variance) + offset is the Normal scale.
-    noise_pos = torch.exp(hp["noise_variance"]) + spec.diagonal_offset
-    loglik = _expected_loglik_sum if spec.analytic_data_likelihood else gaussian_loglik_sum
-    ll = []
-    for mm, mod in enumerate(spec.modalities):
-        scale = noise_pos[-spec.n_modalities + mm]
-        b = batch[mod.name]
-        ll.append((mod.name, loglik(b["outputs"], *obs[mod.name], scale, b["mask"]) / S))
+    with profiling.span("gpsa.objective"):
+        kl = kl_parts(spec, hp, warp_aux, data_aux)
+        if reduce_obs is not None:
+            obs = {n: tuple(reduce_obs(n, t) for t in ts) for n, ts in obs.items()}
+        # Reference quirk kept: exp(noise_variance) + offset is the Normal scale.
+        noise_pos = torch.exp(hp["noise_variance"]) + spec.diagonal_offset
+        loglik = _expected_loglik_sum if spec.analytic_data_likelihood else gaussian_loglik_sum
+        ll = []
+        for mm, mod in enumerate(spec.modalities):
+            scale = noise_pos[-spec.n_modalities + mm]
+            b = batch[mod.name]
+            ll.append((mod.name, loglik(b["outputs"], *obs[mod.name], scale, b["mask"]) / S))
     return ll, kl
 
 
@@ -930,13 +936,14 @@ def negative_elbo(
     hp.update(params)
     ll, kl = elbo_parts(spec, hp, batch, S, temperature, generator=generator,
                         warp_noise=warp_noise, data_noise=data_noise)
-    KL = torch.zeros((), dtype=hp["delta_G"].dtype, device=hp["delta_G"].device)
-    for _, part in kl:
-        KL = KL + part
-    LL = torch.zeros((), dtype=KL.dtype, device=KL.device)
-    for _, part in ll:
-        LL = LL + part
-    return -LL + KL
+    with profiling.span("gpsa.objective"):
+        KL = torch.zeros((), dtype=hp["delta_G"].dtype, device=hp["delta_G"].device)
+        for _, part in kl:
+            KL = KL + part
+        LL = torch.zeros((), dtype=KL.dtype, device=KL.device)
+        for _, part in ll:
+            LL = LL + part
+        return -LL + KL
 
 
 # ---------------------------------------------------------------------------
@@ -971,6 +978,7 @@ def importance_weights(spec: ModelSpec, sub_spec: ModelSpec, batch) -> Dict[str,
     return out
 
 
+@profiling.spanned("gpsa.sampler")
 def subsample_batch(
     spec: ModelSpec,
     sub_spec: ModelSpec,

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils import profiling
 from .spec import ModelSpec, _as_numpy, view_slices
 
 __all__ = ["kmeans_centers", "init_inducing", "init_params", "merge_hyperparams"]
@@ -161,6 +162,7 @@ def _exact_kmeans(x: np.ndarray, k: int, rng: np.random.Generator) -> np.ndarray
     return best[0]
 
 
+@profiling.spanned("gpsa.model.kmeans")
 def kmeans_centers(x: np.ndarray, k: int, seed: int) -> np.ndarray:
     """k cluster centres of the rows of x, as float32, seeded by ``seed``.
     As in the JAX package: with no more points than k, the points tiled;

@@ -22,7 +22,20 @@ a replay draws what an eager step from the same generator state draws.
 Kernel counters (``ops.read_counters``) count a captured step once, at its
 capture. The loop keeps that step's counts, sets the counters back to their
 values before the warm-up and adds the step's counts once per replay, so
-they count the steps a fit runs.
+they count the steps a fit runs. The loop's own counter ``loop.replays``
+(this module's ``COUNTERS``) is one of the step's counts: a replay adds 1.
+The graphs captured, ``captures``, stay out of ``ops.read_counters()``,
+so that a fit moves those by its steps times the step's counts alone.
+
+Spans (``utils.profiling``, off by default): ``gpsa.loop.prime``,
+``gpsa.loop.warmup`` and ``gpsa.loop.capture`` around the construction's
+three parts (``VariationalGPSA.make_train_loop`` opens ``gpsa.loop.build``
+around the optimizer's construction and the loop's); ``gpsa.loop.reset``
+around a state reset or load; ``gpsa.loop.inputs``, ``gpsa.loop.replays``
+and ``gpsa.loop.losses`` around a chunk's host-to-device copy, its steps
+and its losses' copy back (the wait for the device included);
+``gpsa.optimizer`` around the step's optimizer work. A replay runs no
+Python, so it runs no span.
 
 With ``width=R`` the step trains R restarts at once (``fit_multistart``):
 the loss function returns their R losses, the step differentiates their
@@ -44,6 +57,7 @@ On the CPU nothing is captured and the same step runs eagerly.
 from __future__ import annotations
 
 import gc
+import sys
 from collections import defaultdict
 from typing import Callable, List, Optional, Tuple
 
@@ -51,11 +65,19 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..utils import profiling
 
 __all__ = ["CosineDecayAdam", "DEFAULT_LR", "TrainLoop", "check_resettable", "resolve_recipe",
            "same_factory"]
 
 DEFAULT_LR = 1e-2
+
+# The loop's counter (``ops.read_counters()``: "loop.replays"): replays of
+# a captured step, counted as one of the step's counts (``per_step``).
+COUNTERS = ("replays",)
+replays = 0
+# Graphs captured (read here, not through ``ops.read_counters()``).
+captures = 0
 
 # Steps between two host copies at most (the device buffers' length).
 CAPACITY = 1024
@@ -230,24 +252,30 @@ class TrainLoop:
         if self.device.type == "cuda" and capture:
             self._capture()
         ops.set_counters(counts)
+        if self.graph is not None:
+            global captures
+            captures += 1
 
     # ------------------------------------------------------------------
     def _step(self):
-        self.optimizer.zero_grad(set_to_none=True)
-        temp, lr = torch.index_select(self._inputs, 1, self._i)
-        for group_lr in self._lrs:
-            group_lr.copy_(lr.reshape(()))
+        with profiling.span("gpsa.optimizer"):
+            self.optimizer.zero_grad(set_to_none=True)
+            temp, lr = torch.index_select(self._inputs, 1, self._i)
+            for group_lr in self._lrs:
+                group_lr.copy_(lr.reshape(()))
         loss = self.loss_fn(temp.reshape(()))
         (loss.sum() if self.width else loss).backward()
-        self.optimizer.step()
-        self._losses.index_copy_(0, self._i, loss.detach().reshape(self._losses[:1].shape))
-        self._i.add_(1)
+        with profiling.span("gpsa.optimizer"):
+            self.optimizer.step()
+            self._losses.index_copy_(0, self._i, loss.detach().reshape(self._losses[:1].shape))
+            self._i.add_(1)
 
     def _put_back(self, saved):
         with torch.no_grad():
             for leaf, value in zip(self.leaves, saved):
                 leaf.copy_(value)
 
+    @profiling.spanned("gpsa.loop.prime")
     def _prime(self):
         """Create the optimizer's state by one step on zero gradients,
         recording each state tensor's value as the optimizer first stores
@@ -300,7 +328,7 @@ class TrainLoop:
             main = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(main)
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), profiling.span("gpsa.loop.warmup"):
                 for _ in range(WARMUP_STEPS):
                     self._step()
             main.wait_stream(side)
@@ -314,12 +342,15 @@ class TrainLoop:
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(self.generator)
             before = ops.read_counters()
-            with torch.cuda.graph(graph, capture_error_mode="global"):
+            with profiling.span("gpsa.loop.capture"), torch.cuda.graph(
+                graph, capture_error_mode="global"
+            ):
                 self._step()
             after = ops.read_counters()
         except Exception as e:
             raise RuntimeError(f"could not capture a training step with {name}: {e}") from e
         self.per_step = {k: after[k] - before[k] for k in after}
+        self.per_step["loop.replays"] = 1
         self.graph = graph
 
     # ------------------------------------------------------------------
@@ -335,16 +366,19 @@ class TrainLoop:
             host[0] = temps[lo : lo + k]
             if lrs is not None:
                 host[1] = lrs[lo : lo + k]
-            self._inputs[:, :k].copy_(torch.from_numpy(host))
-            self._i.zero_()
-            if self.graph is None:
-                for _ in range(k):
-                    self._step()
-            else:
-                for _ in range(k):
-                    self.graph.replay()
-                ops.add_counters(self.per_step, k)
-            out[lo : lo + k] = self._losses[:k].cpu().numpy()
+            with profiling.span("gpsa.loop.inputs"):
+                self._inputs[:, :k].copy_(torch.from_numpy(host))
+                self._i.zero_()
+            with profiling.span("gpsa.loop.replays"):
+                if self.graph is None:
+                    for _ in range(k):
+                        self._step()
+                else:
+                    for _ in range(k):
+                        self.graph.replay()
+                    ops.add_counters(self.per_step, k)
+            with profiling.span("gpsa.loop.losses"):
+                out[lo : lo + k] = self._losses[:k].cpu().numpy()
         return out
 
     def state(self) -> dict:
@@ -357,6 +391,7 @@ class TrainLoop:
             if isinstance(value, torch.Tensor)
         }
 
+    @profiling.spanned("gpsa.loop.reset")
     def reset_state(self):
         """A fresh optimizer state in place: every state tensor set to the
         value the optimizer first stored in it (zero for Adam's moments and
@@ -365,6 +400,7 @@ class TrainLoop:
             for key, value in self.state().items():
                 value.copy_(self._fresh[key])
 
+    @profiling.spanned("gpsa.loop.reset")
     def load_state(self, flat: dict):
         """Write a saved state ({path: array}, as :meth:`state` names it)
         into the optimizer's state tensors in place."""
@@ -380,3 +416,6 @@ class TrainLoop:
                         f"optimizer {tuple(value.shape)}"
                     )
                 value.copy_(torch.from_numpy(arr))
+
+
+ops.register_counted("loop", sys.modules[__name__])

@@ -33,6 +33,7 @@ import torch.distributed
 from .._device import resolve_device
 from ..ops.gram import gram_force
 from ..ops.kernels import kernel_name
+from ..utils import profiling
 from ..utils.checkpoint import load_checkpoint_blob, nest, save_checkpoint, unflatten_into
 from . import core
 from .convert import tensors_from_numpy
@@ -86,6 +87,7 @@ class VariationalGPSA(MultistartMixin):
     _comms = None
     _global_batch = None
 
+    @profiling.spanned("gpsa.model.init")
     def __init__(
         self,
         data_dict: Dict[str, dict],
@@ -533,6 +535,7 @@ class VariationalGPSA(MultistartMixin):
 
         return step, opt
 
+    @profiling.spanned("gpsa.loop.build")
     def make_train_loop(
         self,
         lr: float = DEFAULT_LR,
@@ -544,7 +547,9 @@ class VariationalGPSA(MultistartMixin):
         (forward, backward, optimizer step) captured once as a CUDA graph and
         replayed once a step, on the CPU run eagerly. ``loop.run(temps,
         lrs)`` runs ``len(temps)`` steps and returns their losses;
-        ``loop.optimizer`` is the optimizer, its state fresh."""
+        ``loop.optimizer`` is the optimizer, its state fresh. Runs inside
+        the span ``gpsa.loop.build``, the optimizer's construction included
+        (a process's first imports ``torch._dynamo``)."""
         # gloo's collectives cannot be captured: a distributed step on it
         # runs eagerly.
         capture = self._mesh is None or torch.distributed.get_backend() == "nccl"
@@ -581,6 +586,7 @@ class VariationalGPSA(MultistartMixin):
         self._train_loop_cache = {"key": key, "optimizer": optimizer, "held": held, "loop": loop}
         return loop
 
+    @profiling.spanned("gpsa.fit", call=True)
     def fit(
         self,
         n_epochs: int,

@@ -27,6 +27,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from ..utils import profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -114,7 +116,8 @@ def load(name: str) -> ctypes.CDLL:
     build), building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        with profiling.span("gpsa.ops.build"):
+            build_all([name])
+            lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
