@@ -137,10 +137,54 @@
 //                 meaning of DEFAULT; the TPU's one bf16 pass keeps 7 bits).
 //                 In the backward, t and w = 2 dy t are made in fp32 and
 //                 rounded the same way as the second product's operand.
-// The tiles, the cluster split, the backward's designs and the order of
-// every sum are the same in both builds; only the mma passes differ. The
-// 1-pass forward does a third of the 3xTF32 products (0.033 ms at the TF32
-// peak at the data layer of the m = 200 fit, where 3xTF32 takes 0.10).
+// Where the one-pass build runs the designs above (m not a multiple of 4,
+// or m > 256) their tiles, cluster split and order of every sum are the
+// 3xTF32 build's; only the mma passes differ.
+//
+// The one-pass build at m <= 256 with m a multiple of 4: warpgroup MMA.
+// mma.sync reaches about a sixth of the card's TF32 rate; only wgmma, an
+// asynchronous product of a 64-row tile by a warpgroup with B (and here
+// mostly A) read from shared memory, reaches all of it. The kernels
+// quad_fwd_kernel_wgmma and quad_bwd_tc_kernel_wgmma (the dx and dF passes)
+// keep the algorithm above: 128 resident rows a block (x's points for the
+// forward and dx, F_b^T's columns for dF), chunks streamed, two chained
+// products a chunk with t made in the accumulator, scaled by 2 dy, rounded
+// and fed from its own registers as the A operand of the second product;
+// dx and dF two passes; partial sums of the splits added in split order by
+// quad_sum_kernel (launches bit-equal). What changes (design note above
+// quad_fwd_kernel_wgmma):
+//   - Blocks of two warpgroups (256 threads, so 255 registers a thread),
+//     each on 64 resident rows: at m = 200 a warpgroup holds t (100
+//     registers) beside its accumulator (100), so a dx chunk is a whole
+//     channel. (A producer warpgroup with setmaxnreg left ptxas at the 168
+//     registers of a 384-thread block, and it serialized the products.)
+//   - Operands K-major (wgmma takes 32-bit operands no other way), in
+//     32-deep slices of 128-byte rows with the 128-byte swizzle, rounded to
+//     TF32 first (wgmma itself truncates): quad_prep_kernel writes F_b^T
+//     (rows in the order sigma below), F_b and, for the backward, x and x^T,
+//     rounded and already in that layout, so that each slot of the ring is
+//     one bulk copy (cp.async.bulk, the TMA engine, 1-D, under an
+//     mbarrier). The backward's copies replace the contiguous copy of x the
+//     mma.sync designs take; its transient memory falls (fewer dF splits).
+//     The forward makes no copy of x: its resident x tile goes through
+//     registers, rounded on the way.
+//   - The accumulator holds columns 2 tig, 2 tig + 1 where the A fragment
+//     wants depth tig, tig + 4: the first product's B rows (F_b^T's columns,
+//     or x's points for dF) are in the order sigma = (0 4 1 5 2 6 3 7) within
+//     each 8, so the second product's B stays in index order.
+//   - A ring of 4 slots (3 at m = 256) runs 4 slices ahead; the last warp to
+//     release a slot refills it at once (a count in shared memory).
+// What bounds them: the same operations (one TF32 pass, 495 TFLOP/s):
+// 0.0327 ms forward and 0.0982 ms backward at the data layer of the m = 200
+// fit (x (5, 4050, 200), F (10, 200, 200)). Measured on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md), x transposed as the model passes it, the
+// wrapper's launches together: forward 0.0981 ms (the mma.sync one-pass
+// design 0.2472), backward 0.4217 (0.8386); at the warp layer, x (1, 2025,
+// 200), F (1, 2, 200, 200), 0.0168 (0.0117: 32 blocks) and 0.0454 (0.0538).
+// In a dx block the first product (its A, the resident tile, read from
+// shared memory; 200 columns) takes about 63 % of the time for half the
+// operations, and waits for slices about 24 %; the dF pass computes 56
+// padding rows of its last row tile at m = 200.
 //
 // Above m = 512 the accumulator and the resident tile outgrow a block, and
 // the first design runs (the wide variant, off every path the repo runs,
@@ -158,6 +202,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "wgmma_tf32.cuh"
 
 // 3: the 3xTF32 build (libquad); 1: the one-pass TF32 build (libquad_tf32).
 #ifndef SAT_QUAD_TF32_PASSES
@@ -1138,6 +1183,657 @@ quad_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ F,
   }
 }
 
+// ---- The one-pass build at m <= 256, m % 4 == 0: warpgroup MMA. ----
+//
+// Three kernels, each a block of two warpgroups (256 threads, so up to 255
+// registers a thread), each running wgmma on 64 of the block's 128
+// resident rows. A ring of kStages slots, each one 32-deep slice of a
+// streamed operand, is filled by bulk copies (cp.async.bulk: the TMA
+// engine, 1-D) that one thread issues under an mbarrier a slot, `full` (one
+// arrival with the slot's byte count; the phase completes when the copies
+// have landed), and a count of the warps done with the slot: the last of
+// the 8 to release it refills it at once with the slice kStages on, so
+// copies run kStages slices ahead of the products and no warp waits to
+// refill. Every operand lies in shared memory K-major (the one layout wgmma
+// reads 32-bit operands in), cut into 32-deep slices of 128-byte rows with
+// the 128-byte swizzle (tile_off, smem_desc), and rounded to TF32 (cvt.rna)
+// before wgmma reads it, since wgmma drops the low bits. quad_prep_kernel
+// writes F, and for the backward x, rounded and already in that layout,
+// slice after slice, so that one bulk copy fills a slot or a slice of the
+// resident tile. Two operands come otherwise: the forward's resident x
+// (read where it lies, through registers, rounded on the way: the forward
+// makes no copy of x) and the 2 dy of a chunk (4-byte cp.async).
+
+constexpr int kWgThreads = 128;            // a warpgroup
+constexpr int kWgBlock = 2 * kWgThreads;   // two warpgroups
+constexpr int kWgRows = 128;               // resident rows of a block; points of a dF chunk
+constexpr int kWgSlice = 32;               // depth of a ring slot
+constexpr int kWgMaxM = 256;
+constexpr int kWgBarBytes = 1024;          // the mbarriers, then the resident tile
+
+#if SAT_QUAD_TF32_PASSES == 1  // (the 3xTF32 build compiles none of what follows)
+
+// Rows of a tile keep their index order within each group of 8 except for
+// one permutation: position p holds index 8 (p / 8) + sigma(p % 8), sigma =
+// (0 4 1 5 2 6 3 7). A wgmma accumulator lane holds columns 2 tig and
+// 2 tig + 1 where the A fragment of the next product wants depth tig and
+// tig + 4; with this order those two columns are indices tig and tig + 4,
+// so t feeds the second product from its own registers and that product's
+// B operand stays in index order.
+__device__ __forceinline__ int sigma8(int p) {
+  const int q = p & 7;
+  return (p & ~7) | ((q & 1) ? 4 + (q >> 1) : (q >> 1));
+}
+
+// NP: the accumulator's width, m rounded up to 64, 128, 200 or 256 (the
+// columns of dx, dF^T and t). NH: half of NP rounded up to 8; NT = 2 NH >=
+// NP rows in a tile of F^T. NX: the dx pass's chunk, columns of F: all NP
+// (t beside the accumulator, 100 + 100 registers at m = 200), or NH where
+// two of NP would not fit (m = 256); kHalves chunks a channel. A slot holds up
+// to kSlotRows rows of one slice (128 values of 2 dy beside it); the
+// resident tile 128 rows, NP rounded up to 32 deep. Slots and slices start
+// on 1 KB, as the swizzle wants.
+template <int NP>
+struct Wg {
+  static constexpr int NH = (NP / 2 + 7) / 8 * 8;
+  static constexpr int NT = 2 * NH;
+  static constexpr int NX = NP <= 200 ? NP : NH;
+  static constexpr int kHalves = NP <= 200 ? 1 : 2;
+  static constexpr int kSlotRows = NT > kWgRows ? NT : kWgRows;
+  static constexpr int kSlotBytes = (kSlotRows * 128 + 1023) / 1024 * 1024;
+  static constexpr int kQBytes = kWgRows * ((NP + 31) / 32 * 32) * 4;
+  static constexpr int kFree = kMaxBlockSmem - kWgBarBytes - kQBytes;
+  static constexpr int kStages = kFree / (kSlotBytes + 512) < 4 ? kFree / (kSlotBytes + 512) : 4;
+  static constexpr size_t kSmem =
+      (size_t)kWgBarBytes + kQBytes + kStages * (kSlotBytes + 512);
+  static_assert(kStages >= 2, "two slots must fit beside the resident tile");
+};
+
+// Element (r, k) of a tile of `rows` rows (a multiple of 8), in floats: the
+// 32-deep slices one after another, each a 128-byte row a row, the 16-byte
+// pieces of row r in the order k / 4 xor r % 8 (8 rows: 1 KB).
+__device__ __forceinline__ int tile_off(int r, int k, int rows) {
+  return (k / 32) * rows * 32 + (r / 8) * 256 + (r % 8) * 32 + ((k % 32 / 4) ^ (r % 8)) * 4 +
+         (k % 4);
+}
+
+// The wgmma descriptor of the 8-deep step t of a tile of `rows` rows at
+// shared address `addr` (K-major, 128-byte swizzle: 8 rows 1 KB apart; the
+// step 32 bytes into its slice's rows).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int rows, int t) {
+  const uint32_t a = addr + (t / 4) * rows * 128 + (t % 4) * 32;
+  return (uint64_t)((a & 0x3ffff) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A wait that outlasts
+// 10 s traps, so that a broken ring ends the launch with an error, not a hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  unsigned long long t0 = 0;
+  for (int spin = 0;; ++spin) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (spin == 0) t0 = now;
+    else if (now - t0 > 10000000000ULL) asm volatile("trap;\n");
+  }
+}
+
+// This thread's arrival, and `bytes` more for the phase to wait for.
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// The phase cannot complete before this thread's cp.async copies so far
+// have landed (they hold back an arrival that follows).
+__device__ __forceinline__ void mbar_track_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// `bytes` (a multiple of 16) from `src` to shared memory at `dst` by the TMA
+// engine, counted against the barrier's expected bytes.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const float* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// This thread's stores to shared memory, visible to wgmma (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The warp's index, and one lane of it, in forms ptxas knows to be uniform
+// across the warp: a divergent branch between two products makes it
+// serialize them.
+__device__ __forceinline__ int warp_index() {
+  return __shfl_sync(0xffffffffu, (int)threadIdx.x / 32, 0);
+}
+
+__device__ __forceinline__ bool elect_one() {
+  uint32_t pred = 0;
+  asm volatile(
+      "{\n.reg .b32 rx;\n.reg .pred px;\nelect.sync rx|px, %1;\n@px mov.s32 %0, 1;\n}\n"
+      : "+r"(pred)
+      : "r"(0xffffffffu));
+  return pred != 0;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers that an asynchronous wgmma writes or reads: the compiler must
+// neither read them early nor reuse them before this point (after a wait).
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The accumulator products of each width (wgmma_tf32.cuh).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
+  else if constexpr (N == 128) wgmma_ss_n128(d, a, b, scale_d);
+  else if constexpr (N == 200) wgmma_ss_n200(d, a, b, scale_d);
+  else wgmma_ss_n256(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a[0], a[1], a[2], a[3], b, 1);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a[0], a[1], a[2], a[3], b, 1);
+  else if constexpr (N == 200) wgmma_rs_n200(d, a[0], a[1], a[2], a[3], b, 1);
+  else wgmma_rs_n256(d, a[0], a[1], a[2], a[3], b, 1);
+}
+
+// 4 bytes from `src` into shared memory at `dst`, or 4 zero bytes (`ok`
+// false; `any` is a valid address that is not read).
+__device__ __forceinline__ void cp4(uint32_t dst, const float* src, bool ok, const float* any) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(ok ? src : any),
+               "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ float rna(float v) { return __uint_as_float(round_tf32(v)); }
+
+// The block's shared memory: barriers (full[s] at 8 s, the resident tile's
+// at 128), the count of warps done with slot s (at 64 + 4 s), the resident
+// tile, the ring.
+template <int NP>
+struct WgSmem {
+  uint32_t base;
+  unsigned char* ptr;
+  __device__ uint32_t full(int s) const { return base + 8 * s; }
+  __device__ int* done(int s) const { return reinterpret_cast<int*>(ptr + 64 + 4 * s); }
+  __device__ uint32_t qbar() const { return base + 128; }
+  __device__ uint32_t q() const { return base + kWgBarBytes; }
+  __device__ float* qf() const { return reinterpret_cast<float*>(ptr + kWgBarBytes); }
+  __device__ uint32_t slot(int s) const {
+    return base + kWgBarBytes + Wg<NP>::kQBytes + s * Wg<NP>::kSlotBytes;
+  }
+  __device__ uint32_t dy(int s) const {
+    return base + kWgBarBytes + Wg<NP>::kQBytes + Wg<NP>::kStages * Wg<NP>::kSlotBytes + 512 * s;
+  }
+  __device__ const float* dyf(int s) const {
+    return reinterpret_cast<const float*>(ptr + kWgBarBytes + Wg<NP>::kQBytes +
+                                          Wg<NP>::kStages * Wg<NP>::kSlotBytes + 512 * s);
+  }
+};
+
+template <int NP>
+__device__ __forceinline__ WgSmem<NP> wg_setup(unsigned char* smem) {
+  WgSmem<NP> sm{smem_addr(smem), smem};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Wg<NP>::kStages; ++s) {
+      mbar_init(sm.full(s), 1);
+      *sm.done(s) = 0;
+    }
+    mbar_init(sm.qbar(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return sm;
+}
+
+template <int NP>
+__device__ __forceinline__ void wg_wait_full(const WgSmem<NP>& sm, int q) {
+  constexpr int S = Wg<NP>::kStages;
+  mbar_wait(sm.full(q % S), (q / S) & 1);
+}
+
+// A warp is done reading slice q (slot q % S); the last of the block's 8
+// refills the slot with slice q + S (fill: every lane of that warp).
+template <int NP, class Fill>
+__device__ __forceinline__ void wg_release(const WgSmem<NP>& sm, int q, Fill& fill) {
+  constexpr int S = Wg<NP>::kStages;
+  int last = 0;
+  if (elect_one()) last = atomicAdd(sm.done(q % S), 1) == kWgBlock / 32 - 1;
+  last = __shfl_sync(0xffffffffu, __reduce_or_sync(0xffffffffu, last), 0);
+  if (last) {
+    *sm.done(q % S) = 0;
+    fill(q + S);
+  }
+}
+
+// t = Q B^T for the warpgroup's 64 rows of the resident tile Q (depth kp:
+// m rounded up to 8) and the ring's next ceil(kp / 32) slices, each NB rows.
+// Releases the slices once read; returns with t complete in registers.
+template <int NP, int NB, class Fill>
+__device__ __forceinline__ void wg_first_product(const WgSmem<NP>& sm, int& q, int kp, int cw,
+                                                 float (&t)[NB / 2], Fill& fill) {
+  const uint32_t qa = sm.q() + cw * 8 * 1024;
+  const int ns = (kp + kWgSlice - 1) / kWgSlice;
+  for (int s = 0; s < ns; ++s, ++q) {
+    wg_wait_full(sm, q);
+    const int steps = min(kWgSlice, kp - s * kWgSlice) / 8;
+    const uint32_t b = sm.slot(q % Wg<NP>::kStages);
+    wgmma_fence();
+    for (int kk = 0; kk < steps; ++kk)
+      wgmma_ss<NB>(t, smem_desc(qa, kWgRows, 4 * s + kk), smem_desc(b, NB, kk), s + kk > 0);
+    wgmma_commit();
+    if (s > 0) {
+      wgmma_wait<1>();
+      wg_release(sm, q - 1, fill);
+    }
+  }
+  wgmma_wait<0>();
+  keep(t);
+  wg_release(sm, q - 1, fill);
+}
+
+// Forward, grid (ceil(N / 128), splits, G): block (tile, split, g) makes
+// out[g, b, n] for the tile's 128 points and the channels b of its split.
+// x (G, N, m) at any strides, read where it lies; FT: quad_prep_kernel's
+// tiles of F_b^T (ft_gstride floats a group, 0 for a shared F).
+template <int NP>
+__global__ void __launch_bounds__(kWgBlock, 1)
+quad_fwd_kernel_wgmma(const float* __restrict__ x, long long xg, long long xn, long long xi,
+                      const float* __restrict__ FT, long long ft_gstride,
+                      float* __restrict__ out, int N, int m, int L, int per) {
+  using W = Wg<NP>;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const WgSmem<NP> sm = wg_setup<NP>(wg_smem);
+  const int n0 = blockIdx.x * kWgRows;
+  const int g = blockIdx.z;
+  const int b0 = blockIdx.y * per;
+  const int b1 = min(b0 + per, L);
+  const int kp = (m + 7) / 8 * 8;
+  const int ns = (kp + kWgSlice - 1) / kWgSlice;
+  // Slice qq of this block: slice qq % ns of F_b^T, b = b0 + qq / ns.
+  const int total = (b1 - b0) * ns;
+  auto fill = [&](int qq) {
+    if (qq >= total) return;
+    if (elect_one()) {
+      const uint32_t full = sm.full(qq % W::kStages);
+      mbar_arrive_tx(full, NP * 128);
+      bulk_copy(sm.slot(qq % W::kStages),
+                FT + g * ft_gstride + ((size_t)(b0 + qq / ns) * ns + qq % ns) * W::NT * 32,
+                NP * 128, full);
+    }
+  };
+  if (warp_index() == 0)  // the first slices, while the resident tile loads
+    for (int qq = 0; qq < W::kStages; ++qq) fill(qq);
+  // The resident x tile through every thread's registers, rounded: consecutive
+  // threads take consecutive points of one 4-deep piece (coalesced reads of
+  // x given transposed) and store it in one 16-byte store; all the reads are
+  // issued before any store.
+  {
+    const float* xb = x + g * xg;
+    const int pieces = kWgRows * kp / 4;
+    float v[NP / 8][4];
+#pragma unroll
+    for (int j = 0; j < NP / 8; ++j) {
+      const int u = threadIdx.x + j * kWgBlock, r = u % kWgRows, k = u / kWgRows * 4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[j][e] = u < pieces && n0 + r < N && k + e < m
+                      ? xb[(long long)(n0 + r) * xn + (long long)(k + e) * xi]
+                      : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < NP / 8; ++j) {
+      const int u = threadIdx.x + j * kWgBlock, r = u % kWgRows, k = u / kWgRows * 4;
+      if (u < pieces)
+        *reinterpret_cast<float4*>(sm.qf() + tile_off(r, k, kWgRows)) =
+            make_float4(rna(v[j][0]), rna(v[j][1]), rna(v[j][2]), rna(v[j][3]));
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+  {
+    const int cw = threadIdx.x / kWgThreads;
+    const int lane = threadIdx.x % 32;
+    const int row = cw * 64 + (threadIdx.x / 32 % 4) * 16 + lane / 4;
+    int q = 0;
+    for (int b = b0; b < b1; ++b) {
+      float t[NP / 2];
+      wg_first_product<NP, NP>(sm, q, kp, cw, t, fill);
+      // Rows `row` and row + 8: columns 8 j + 2 tig, + 1 (past m: zero rows of FT).
+      float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NP / 8; ++j) {
+        s0 = fmaf(t[4 * j], t[4 * j], s0);
+        s0 = fmaf(t[4 * j + 1], t[4 * j + 1], s0);
+        s1 = fmaf(t[4 * j + 2], t[4 * j + 2], s1);
+        s1 = fmaf(t[4 * j + 3], t[4 * j + 3], s1);
+      }
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+      if (lane % 4 == 0) {
+        float* o = out + ((size_t)g * L + b) * N + n0;
+        if (n0 + row < N) o[row] = s0;
+        if (n0 + row + 8 < N) o[row + 8] = s1;
+      }
+    }
+  }
+}
+
+// Backward, the dx pass (DF false) or the dF pass (DF true), each two
+// chained products a chunk:
+//   dx:   S = x F_b[:, c]     (x resident: 128 points; chunk c: NH columns)
+//         w = 2 dy[n] S,  dx += w F_b[:, c]^T
+//   dF^T: S^T = F_b[:, k]^T x[c]^T  (F_b^T resident: 128 columns k; chunk c: 128 points)
+//         w^T = 2 dy[c] S^T,  dF_b^T += w^T x[c]
+// X, XT, FT and FN: quad_prep_kernel's tiles of x (128 points a tile, rows
+// in sigma order), x^T (the same points, four 32-point slices), F_b^T (rows
+// in sigma order) and F_b (per column half).
+// dx: grid (ceil(N / 128), splits, G); block (tile, split, g) takes chunks
+// [split per, + per) of the 2 L (channel, column half) chunks and writes
+// its partial dx to out + split out_split. dF: grid (ceil(mp8 / 128), L,
+// splits n_groups); block (slab, b, split n_groups + fg) takes chunks
+// [split per, + per) of the factor group's (group, 128 points) chunks and
+// writes its partial dF_b to out + (split n_groups + fg) out_split + b m^2.
+template <bool DF, int NP>
+__global__ void __launch_bounds__(kWgBlock, 1)
+quad_bwd_tc_kernel_wgmma(const float* __restrict__ X, const float* __restrict__ XT,
+                         const float* __restrict__ FT, const float* __restrict__ FN,
+                         const float* __restrict__ dy,
+                         float* __restrict__ out, long long out_split, int G, int N, int m,
+                         int L, int n_groups, int per) {
+  using W = Wg<NP>;
+  constexpr int NC = DF ? kWgRows : W::NX;  // the chunk: t's columns
+  constexpr int S = W::kStages;
+  constexpr int ns2 = (NC + kWgSlice - 1) / kWgSlice;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const WgSmem<NP> sm = wg_setup<NP>(wg_smem);
+  const int kp = (m + 7) / 8 * 8;
+  const int ns1 = (kp + kWgSlice - 1) / kWgSlice;
+  const int tiles = (N + kWgRows - 1) / kWgRows;  // x tiles a group
+  const size_t xtile = (size_t)ns1 * kWgRows * kWgSlice;  // floats of one x tile
+  const size_t ftile = (size_t)ns1 * W::NT * kWgSlice;    // floats of one F_b^T
+  const size_t ntile = (size_t)W::kHalves * ns2 * NP * kWgSlice;  // floats of one F_b (dx)
+  // This block's work. A chunk j is (channel b, column part h) for dx, and
+  // (group g, x tile j % tiles) for dF.
+  int g = 0, fg = 0, b = 0, n0 = 0, k0 = 0, split, j0, j1, gfirst = 0;
+  if (DF) {
+    k0 = blockIdx.x * kWgRows;
+    b = blockIdx.y;
+    fg = blockIdx.z % n_groups;
+    split = blockIdx.z / n_groups;
+    gfirst = n_groups == 1 ? 0 : fg;
+    j0 = split * per;
+    j1 = min(j0 + per, (n_groups == 1 ? G : 1) * tiles);
+  } else {
+    n0 = blockIdx.x * kWgRows;
+    split = blockIdx.y;
+    g = blockIdx.z;
+    fg = n_groups == 1 ? 0 : g;
+    j0 = split * per;
+    j1 = min(j0 + per, W::kHalves * L);
+  }
+  // Slice qq of this block: chunk j0 + qq / (ns1 + ns2); within it the first
+  // product's ns1 slices (depth i), then the second's ns2 (depth: the chunk).
+  const int total = (j1 - j0) * (ns1 + ns2);
+  auto fill = [&](int qq) {
+    if (qq >= total) return;
+    const int j = j0 + qq / (ns1 + ns2), r = qq % (ns1 + ns2);
+    int jb = b, jg = g, h = 0, xt = 0;
+    if (DF) {
+      jg = gfirst + j / tiles;
+      xt = j % tiles;  // the chunk's x tile
+    } else {
+      jb = j / W::kHalves;
+      h = j % W::kHalves;  // the chunk's column part
+    }
+    const uint32_t slot = sm.slot(qq % S);
+    const uint32_t full = sm.full(qq % S);
+    const float* src;
+    int bytes;
+    if (r < ns1) {  // the first product: x (dF) or F_b^T at the chunk's columns (dx)
+      bytes = NC * 128;
+      src = DF ? X + ((size_t)jg * tiles + xt) * xtile + r * kWgRows * kWgSlice
+               : FT + ((size_t)fg * L + jb) * ftile + ((size_t)r * W::NT + h * NC) * kWgSlice;
+    } else {  // the second: x^T at the chunk's points (dF) or F_b at its columns (dx)
+      const int s = r - ns1;
+      bytes = NP * 128;
+      src = DF ? XT + (((size_t)jg * tiles + xt) * ns2 + s) * NP * kWgSlice
+               : FN + ((size_t)fg * L + jb) * ntile + ((size_t)h * ns2 + s) * NP * kWgSlice;
+      if (s == 0) {  // 2 dy of the resident rows (dx, in sigma order) or the chunk's points (dF)
+        const float* dyb = dy + ((size_t)jg * L + jb) * N;
+        for (int c = threadIdx.x % 32; c < kWgRows; c += 32) {
+          const int n = DF ? xt * kWgRows + c : n0 + sigma8(c);
+          cp4(sm.dy(qq % S) + 4 * c, dyb + n, n < N, dy);
+        }
+        mbar_track_copies(full);
+        __syncwarp();
+      }
+    }
+    if (elect_one()) {
+      mbar_arrive_tx(full, bytes);
+      bulk_copy(slot, src, bytes, full);
+    }
+  };
+  // The resident tile, by bulk copies: x tile (dx), or F_b^T's rows k0 ... (dF).
+  if (threadIdx.x == 0) {
+    const int rows = DF ? min(kWgRows, W::NT - k0) : kWgRows;
+    mbar_arrive_tx(sm.qbar(), ns1 * rows * 128);
+    const float* src = DF ? FT + ((size_t)fg * L + b) * ftile + (size_t)k0 * kWgSlice
+                          : X + ((size_t)g * tiles + blockIdx.x) * xtile;
+    const size_t stride = DF ? (size_t)W::NT * kWgSlice : (size_t)kWgRows * kWgSlice;
+    for (int s = 0; s < ns1; ++s)
+      bulk_copy(sm.q() + s * kWgRows * 128, src + s * stride, rows * 128, sm.qbar());
+  }
+  if (warp_index() == 0)  // the first slices, while the resident tile loads
+    for (int qq = 0; qq < S; ++qq) fill(qq);
+  mbar_wait(sm.qbar(), 0);
+  {
+    const int cw = threadIdx.x / kWgThreads;
+    const int lane = threadIdx.x % 32;
+    const int gid = lane / 4, tig = lane % 4;
+    const int row = cw * 64 + (threadIdx.x / 32 % 4) * 16 + gid;  // and row + 8
+    float acc[NP / 2];
+#pragma unroll
+    for (int e = 0; e < NP / 2; ++e) acc[e] = 0.0f;
+    int q = 0;
+    for (int j = j0; j < j1; ++j) {
+      float t[NC / 2];
+      wg_first_product<NP, NC>(sm, q, kp, cw, t, fill);
+      // w = 2 dy t, rounded, in t's registers: the A operand of the second
+      // product, columns 2 tig and 2 tig + 1 of each 8 as its depth tig and tig + 4.
+      wg_wait_full(sm, q);
+      const float* dys = sm.dyf(q % S);
+#pragma unroll
+      for (int jj = 0; jj < NC / 8; ++jj) {
+        float d0, d1, d2, d3;  // the factors of t[4 jj + e]
+        if (DF) {
+          d0 = d2 = 2.0f * dys[8 * jj + tig];
+          d1 = d3 = 2.0f * dys[8 * jj + tig + 4];
+        } else {
+          d0 = d1 = 2.0f * dys[row];
+          d2 = d3 = 2.0f * dys[row + 8];
+        }
+        t[4 * jj] = rna(d0 * t[4 * jj]);
+        t[4 * jj + 1] = rna(d1 * t[4 * jj + 1]);
+        t[4 * jj + 2] = rna(d2 * t[4 * jj + 2]);
+        t[4 * jj + 3] = rna(d3 * t[4 * jj + 3]);
+      }
+#pragma unroll
+      for (int kt = 0; kt < NC / 8; ++kt) {
+        const int s = kt / 4, kk = kt % 4;
+        if (kk == 0) {
+          if (s > 0) wg_wait_full(sm, q + s);
+          wgmma_fence();
+        }
+        const uint32_t a[4] = {__float_as_uint(t[4 * kt]), __float_as_uint(t[4 * kt + 2]),
+                               __float_as_uint(t[4 * kt + 1]), __float_as_uint(t[4 * kt + 3])};
+        wgmma_rs<NP>(acc, a, smem_desc(sm.slot((q + s) % S), NP, kk));
+        if (kk == 3 || kt == NC / 8 - 1) {
+          wgmma_commit();
+          if (s > 0) {
+            wgmma_wait<1>();
+            wg_release(sm, q + s - 1, fill);
+          }
+        }
+      }
+      wgmma_wait<0>();
+      keep(acc);
+      keep(t);
+      wg_release(sm, q + ns2 - 1, fill);
+      q += ns2;
+    }
+    // Rows row, row + 8 (positions); columns 8 jj + 2 tig, + 1 of the accumulator.
+    if (DF) {
+      float* o = out + (size_t)(split * n_groups + fg) * out_split + (size_t)b * m * m;
+#pragma unroll
+      for (int jj = 0; jj < NP / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = sigma8(k0 + row + (e >> 1) * 8);
+          const int i = 8 * jj + 2 * tig + (e & 1);
+          if (k < m && i < m) o[(size_t)i * m + k] = acc[4 * jj + e];
+        }
+    } else {
+      float* o = out + (size_t)split * out_split + ((size_t)g * N + n0) * m;
+#pragma unroll
+      for (int jj = 0; jj < NP / 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = sigma8(row) + 8 * h;
+          const int i = 8 * jj + 2 * tig;
+          if (n0 + n < N && i < m)
+            *reinterpret_cast<float2*>(o + (size_t)n * m + i) =
+                make_float2(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+        }
+    }
+  }
+}
+
+// The operands of the kernels above, rounded to TF32 and laid out as the
+// slots take them (tile_off), a 32-deep slice after another, zero past m
+// and past the points:
+//   FT: per matrix f of F, the NT x 32 tiles of F_f^T: row p = column
+//       sigma8(p) of F_f, depth k of slice s = row 32 s + k;
+//   FN (when not null): per matrix, per column part h, the NP x 32 tiles of
+//       F_f: row i, depth k of slice s = column h NX + 32 s + k;
+//   X (when not null): per group g, per 128-point tile, the 128 x 32 tiles
+//       of x: row p = point 128 tile + sigma8(p), depth = i;
+//   XT (with X): per group, per 128-point tile, the four NP x 32 tiles of
+//       x^T: row i, depth k of slice s = point 128 tile + 32 s + k.
+// One block a tile: blocks [0, nft) the FT tiles, then nfn FN tiles, then
+// the X tiles, then the XT tiles. Reads go through shared memory where the
+// source is not K-major (F for FT; x given transposed, as the model passes
+// it, for X).
+template <int NP>
+__global__ void __launch_bounds__(256)
+quad_prep_kernel(const float* __restrict__ F, int m, float* __restrict__ FT, int nft,
+                 float* __restrict__ FN, int nfn, const float* __restrict__ x, long long xg,
+                 long long xn, long long xi, int N, float* __restrict__ X, int nx,
+                 float* __restrict__ XT) {
+  using W = Wg<NP>;
+  constexpr int kCols = W::NT > kWgRows ? W::NT : kWgRows;
+  __shared__ float tile[kWgSlice][kCols + 1];
+  const int kp = (m + 7) / 8 * 8;
+  const int ns1 = (kp + kWgSlice - 1) / kWgSlice;
+  constexpr int ns2 = (W::NX + kWgSlice - 1) / kWgSlice;
+  int blk = blockIdx.x;
+  if (blk < nft) {  // tile s of F_f^T: F's rows 32 s ..., every column
+    const int f = blk / ns1, s = blk % ns1;
+    const float* Ff = F + (size_t)f * m * m;
+    for (int e = threadIdx.x; e < kWgSlice * W::NT; e += 256) {
+      const int k = e / W::NT, c = e % W::NT;
+      const int i = s * kWgSlice + k;
+      tile[k][c] = i < m && c < m ? Ff[(size_t)i * m + c] : 0.0f;
+    }
+    __syncthreads();
+    float* o = FT + (size_t)blk * W::NT * kWgSlice;
+    for (int e = threadIdx.x; e < W::NT * kWgSlice; e += 256) {
+      const int r = e / 256 * 8 + e % 256 / 32, k = (e % 32 / 4 ^ e % 256 / 32) * 4 + e % 4;
+      o[e] = rna(tile[k][sigma8(r)]);
+    }
+    return;
+  }
+  blk -= nft;
+  if (blk < nfn) {  // tile s of column part h of F_f
+    const int f = blk / (W::kHalves * ns2), h = blk / ns2 % W::kHalves, s = blk % ns2;
+    const float* Ff = F + (size_t)f * m * m;
+    float* o = FN + (size_t)blk * NP * kWgSlice;
+    for (int e = threadIdx.x; e < NP * kWgSlice; e += 256) {
+      const int r = e / 256 * 8 + e % 256 / 32, k = (e % 32 / 4 ^ e % 256 / 32) * 4 + e % 4;
+      const int c = h * W::NX + s * kWgSlice + k;
+      o[e] = r < m && c < m ? rna(Ff[(size_t)r * m + c]) : 0.0f;
+    }
+    return;
+  }
+  blk -= nfn;
+  const int tiles = (N + kWgRows - 1) / kWgRows;
+  if (blk >= nx) {  // slice s of the x^T tile xt of group g
+    blk -= nx;
+    constexpr int kSlices = kWgRows / kWgSlice;
+    const int g = blk / (tiles * kSlices), xt = blk / kSlices % tiles, s = blk % kSlices;
+    const float* xb = x + g * xg;
+    float* o = XT + (size_t)blk * NP * kWgSlice;
+    for (int e = threadIdx.x; e < NP * kWgSlice; e += 256) {
+      const int r = e / 256 * 8 + e % 256 / 32, k = (e % 32 / 4 ^ e % 256 / 32) * 4 + e % 4;
+      const int n = xt * kWgRows + s * kWgSlice + k;
+      o[e] = r < m && n < N ? rna(xb[(long long)n * xn + (long long)r * xi]) : 0.0f;
+    }
+    return;
+  }
+  // slice s of the x tile xt of group g
+  const int g = blk / (tiles * ns1), xt = blk / ns1 % tiles, s = blk % ns1;
+  const float* xb = x + g * xg;
+  const bool along_n = xn == 1;  // read along the unit stride
+  for (int e = threadIdx.x; e < kWgSlice * kWgRows; e += 256) {
+    const int k = along_n ? e / kWgRows : e % kWgSlice;
+    const int p = along_n ? e % kWgRows : e / kWgSlice;  // the point's offset in the tile
+    const int n = xt * kWgRows + p, i = s * kWgSlice + k;
+    tile[k][p] = n < N && i < m ? xb[(long long)n * xn + (long long)i * xi] : 0.0f;
+  }
+  __syncthreads();
+  float* o = X + (size_t)blk * kWgRows * kWgSlice;
+  for (int e = threadIdx.x; e < kWgRows * kWgSlice; e += 256) {
+    const int r = e / 256 * 8 + e % 256 / 32, k = (e % 32 / 4 ^ e % 256 / 32) * 4 + e % 4;
+    o[e] = rna(tile[k][sigma8(r)]);
+  }
+}
+
+#endif  // SAT_QUAD_TF32_PASSES == 1
+
 template <class T>
 int cluster_size(int m) {
   const int tiles = (m + T::BN - 1) / T::BN;
@@ -1236,10 +1932,25 @@ struct BwdPlan {
   int sx = 1, per_x = 0;       // dx: splits of the L * nkc chunks, chunks a split
   int sf = 1, per_f = 0;       // dF: splits of a group's rows, chunks of BC a split
   long long scratch_x = 0, scratch_f = 0;  // floats of partial sums
+  // The warpgroup-MMA design (wg): its width NP (ni = NP / 8), the dx
+  // pass's chunk NH, the forward's splits of the channels, and the floats
+  // of the operands it prepares (after the partial sums): x's and x^T's
+  // tiles, F^T's and F's.
+  bool wg = false;
+  int nh = 0, sw = 1, per_w = 0;
+  long long prep_x = 0, prep_xt = 0, prep_ft = 0, prep_fn = 0;
   int err = 0;
 };
 
 constexpr long long kMaxPartialFloats = 1LL << 24;  // 64 MB of partial sums an output
+
+// The scratch of the warpgroup-MMA backward, in floats: x's tiles, F^T's,
+// F's, then one region that holds x^T's tiles and the dF pass's partial
+// sums, and after them the dx pass's (the dF pass runs first).
+long long wg_scratch(const BwdPlan& p) {
+  return p.prep_x + p.prep_ft + p.prep_fn + std::max(p.prep_xt + p.scratch_f, p.scratch_x);
+}
+
 
 using BwdKernel = void (*)(const float*, const float*, long long, const float*, float*,
                           long long, int, int, int, int, long long, int);
@@ -1300,8 +2011,86 @@ int wide_splits(int G, int N, int m, int L, int n_groups) {
   return (int)(s < tiles ? s : tiles);
 }
 
+// ---- Host side of the warpgroup-MMA design. ----
+
+// The one-pass build takes it where a 64 x m accumulator fits a warpgroup
+// and rows of m floats are whole 16-byte pieces.
+bool wg_path(int m) { return kOnePass && m >= 1 && m <= kWgMaxM && m % 4 == 0; }
+
+int wg_np(int m) { return m <= 64 ? 64 : m <= 128 ? 128 : m <= 200 ? 200 : 256; }
+
+#if SAT_QUAD_TF32_PASSES == 1
+
+// Shared memory for the three kernels of width NP; the blocks an SM they get.
+template <int NP>
+int wg_attrs(int& occ) {
+  const void* kernels[3] = {(const void*)quad_fwd_kernel_wgmma<NP>,
+                            (const void*)quad_bwd_tc_kernel_wgmma<false, NP>,
+                            (const void*)quad_bwd_tc_kernel_wgmma<true, NP>};
+  occ = 1 << 30;
+  for (const void* k : kernels) {
+    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Wg<NP>::kSmem);
+    int o = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o, k, kWgBlock, Wg<NP>::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    occ = std::min(occ, o);
+  }
+  return occ >= 1 ? 0 : (int)cudaErrorInvalidConfiguration;
+}
+
+template <int NP>
+void plan_wg(BwdPlan& p, int G, int N, int m, int L, int n_groups) {
+  p.wg = true;
+  p.ni = NP / 8;
+  p.rows = kWgRows;
+  p.nh = Wg<NP>::NX;
+  p.stages_dx = p.stages_df = Wg<NP>::kStages;
+  p.err = wg_attrs<NP>(p.occ_dx);
+  p.occ_df = p.occ_dx;
+  const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+  if (p.err == 0 && sms <= 0) p.err = (int)cudaErrorInvalidDevice;
+  if (p.err != 0) return;
+  const long long slots = (long long)p.occ_dx * sms;
+  const long long tiles = ceil_div(N, kWgRows) * G;
+  p.sw = pick_splits(tiles, L, slots, L);
+  p.per_w = (int)ceil_div(L, p.sw);
+  const long long dx_floats = (long long)G * N * m;
+  const long long items_x = (long long)Wg<NP>::kHalves * L;
+  p.sx = pick_splits(tiles, items_x, slots,
+                     std::max(1LL, std::min(64LL, kMaxPartialFloats / dx_floats)));
+  p.per_x = (int)ceil_div(items_x, p.sx);
+  p.scratch_x = p.sx > 1 ? p.sx * dx_floats : 0;
+  const int kp = (m + 7) / 8 * 8;
+  const long long chunks = (n_groups == 1 ? G : 1) * ceil_div(N, kWgRows);
+  const long long df_floats = (long long)n_groups * L * m * m;
+  p.sf = pick_splits(ceil_div(kp, kWgRows) * L * n_groups, chunks, slots,
+                     std::max(1LL, std::min(64LL, kMaxPartialFloats / df_floats)));
+  p.per_f = (int)ceil_div(chunks, p.sf);
+  p.scratch_f = p.sf > 1 ? p.sf * df_floats : 0;
+  const long long ns1 = ceil_div(kp, kWgSlice), ns2 = ceil_div(Wg<NP>::NX, kWgSlice);
+  p.prep_x = G * ceil_div(N, kWgRows) * ns1 * kWgRows * kWgSlice;
+  p.prep_xt = G * ceil_div(N, kWgRows) * kWgRows * NP;
+  p.prep_ft = n_groups * L * ns1 * Wg<NP>::NT * kWgSlice;
+  p.prep_fn = n_groups * L * Wg<NP>::kHalves * ns2 * NP * kWgSlice;
+}
+
+#endif  // SAT_QUAD_TF32_PASSES == 1
+
 BwdPlan bwd_plan(int G, int N, int m, int L, int n_groups) {
   BwdPlan p;
+#if SAT_QUAD_TF32_PASSES == 1
+  if (wg_path(m)) {
+    switch (wg_np(m)) {
+      case 64: plan_wg<64>(p, G, N, m, L, n_groups); break;
+      case 128: plan_wg<128>(p, G, N, m, L, n_groups); break;
+      case 200: plan_wg<200>(p, G, N, m, L, n_groups); break;
+      default: plan_wg<256>(p, G, N, m, L, n_groups);
+    }
+    return p;
+  }
+#endif
   p.ni = bwd_ni(m);
   switch (p.ni) {
     case 8: plan_tc<8>(p, G, N, m, L, n_groups); break;
@@ -1361,6 +2150,72 @@ int launch_bwd_tc(const BwdPlan& p, const float* x, const float* F, long long f_
   return e;
 }
 
+#if SAT_QUAD_TF32_PASSES == 1
+// The operands of the warpgroup-MMA kernels (quad_prep_kernel): F^T's tiles
+// from the nmat matrices of F, and F's, x's and x^T's where FN and X are not
+// null (XT with X).
+template <int NP>
+int launch_prep(const float* F, int nmat, int m, float* FT, float* FN, const float* x,
+                long long xg, long long xn, long long xi, int G, int N, float* X, float* XT,
+                cudaStream_t s) {
+  const long long ns1 = ceil_div((m + 7) / 8 * 8, kWgSlice);
+  const long long nft = nmat * ns1;
+  const long long nfn =
+      FN != nullptr ? nmat * Wg<NP>::kHalves * ceil_div(Wg<NP>::NX, kWgSlice) : 0;
+  const long long tiles = ceil_div(N, kWgRows);
+  const long long nx = X != nullptr ? G * tiles * ns1 : 0;
+  const long long nxt = X != nullptr ? G * tiles * (kWgRows / kWgSlice) : 0;
+  if (nft + nfn + nx + nxt > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  quad_prep_kernel<NP><<<(unsigned)(nft + nfn + nx + nxt), 256, 0, s>>>(
+      F, m, FT, (int)nft, FN, (int)nfn, x, xg, xn, xi, N, X, (int)nx, XT);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_fwd_wg(const BwdPlan& p, const float* x, long long xg, long long xn, long long xi,
+                  const float* F, bool per_group, float* out, float* FT, int G, int N, int m,
+                  int L, cudaStream_t s) {
+  int e = launch_prep<NP>(F, (per_group ? G : 1) * L, m, FT, nullptr, nullptr, 0, 0, 0, 0, 0,
+                          nullptr, nullptr, s);
+  if (e != 0) return e;
+  const dim3 grid((unsigned)ceil_div(N, kWgRows), (unsigned)p.sw, (unsigned)G);
+  quad_fwd_kernel_wgmma<NP><<<grid, kWgBlock, Wg<NP>::kSmem, s>>>(
+      x, xg, xn, xi, FT, per_group ? p.prep_ft / G : 0, out, N, m, L, p.per_w);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_bwd_wg(const BwdPlan& p, const float* x, long long xg, long long xn, long long xi,
+                  const float* F, const float* dy, float* dx, float* dF, float* scratch, int G,
+                  int N, int m, int L, int n_groups, cudaStream_t s) {
+  const long long dx_floats = (long long)G * N * m;
+  const long long df_floats = (long long)n_groups * L * m * m;
+  float* X = scratch;
+  float* FT = X + p.prep_x;
+  float* FN = FT + p.prep_ft;
+  float* XT = FN + p.prep_fn;
+  float* pf = p.sf > 1 ? XT + p.prep_xt : dF;
+  float* px = p.sx > 1 ? XT : dx;  // over x^T's tiles and dF's partial sums, dead by then
+  int e = launch_prep<NP>(F, n_groups * L, m, FT, FN, x, xg, xn, xi, G, N, X, XT, s);
+  if (e != 0) return e;
+  quad_bwd_tc_kernel_wgmma<true, NP>
+      <<<dim3((unsigned)ceil_div((m + 7) / 8 * 8, kWgRows), (unsigned)L,
+              (unsigned)(p.sf * n_groups)),
+         kWgBlock, Wg<NP>::kSmem, s>>>(X, XT, FT, FN, dy, pf, (long long)L * m * m, G, N, m,
+                                        L, n_groups, p.per_f);
+  e = (int)cudaGetLastError();
+  if (e == 0 && p.sf > 1) e = launch_sum(pf, dF, df_floats, p.sf, s);
+  if (e != 0) return e;
+  quad_bwd_tc_kernel_wgmma<false, NP>
+      <<<dim3((unsigned)ceil_div(N, kWgRows), (unsigned)p.sx, (unsigned)G), kWgBlock,
+         Wg<NP>::kSmem, s>>>(X, XT, FT, FN, dy, px, dx_floats, G, N, m, L, n_groups, p.per_x);
+  e = (int)cudaGetLastError();
+  if (e == 0 && p.sx > 1) e = launch_sum(px, dx, dx_floats, p.sx, s);
+  return e;
+}
+
+#endif  // SAT_QUAD_TF32_PASSES == 1
+
 int launch_bwd_wide(const BwdPlan& p, const float* x, const float* F, long long f_gstride,
                     const float* dy, float* dx, float* dF, float* partial, int G, int N, int m,
                     int L, int n_groups, cudaStream_t s) {
@@ -1392,41 +2247,72 @@ extern "C" {
 int sat_quad_tf32_passes() { return SAT_QUAD_TF32_PASSES; }
 
 // The forward's design at these sizes: the rows and the columns of t in
-// its block tile, and the blocks of its cluster (splits of the columns).
+// its block tile, and the blocks of its cluster (splits of the columns;
+// 1 in the warpgroup-MMA design, which keeps whole rows of t).
 int sat_quad_fwd_tile_rows(int G, int N, int m, int L) {
+  if (wg_path(m)) return kWgRows;
   const FwdChoice c = fwd_choice(G, N, m, L);
   return c == kLarge ? FwdLarge::BM : c == kMedium ? FwdMedium::BM : FwdSmall::BM;
 }
 
 int sat_quad_fwd_tile_cols(int G, int N, int m, int L) {
+  if (wg_path(m)) return wg_np(m);
   const FwdChoice c = fwd_choice(G, N, m, L);
   return c == kLarge ? FwdLarge::BN : c == kMedium ? FwdMedium::BN : FwdSmall::BN;
 }
 
 int sat_quad_fwd_cluster(int G, int N, int m, int L) {
+  if (wg_path(m)) return 1;
   const FwdChoice c = fwd_choice(G, N, m, L);
   return c == kLarge    ? cluster_size<FwdLarge>(m)
          : c == kMedium ? cluster_size<FwdMedium>(m)
                         : cluster_size<FwdSmall>(m);
 }
 
+// Floats of scratch the forward needs at these sizes (F_b^T rounded, for
+// the warpgroup-MMA design; 0 otherwise).
+long long sat_quad_fwd_scratch_floats(int G, int N, int m, int L, int per_group) {
+  if (!wg_path(m)) return 0;
+  const long long ns1 = ceil_div((m + 7) / 8 * 8, kWgSlice);
+  const int nh = (wg_np(m) / 2 + 7) / 8 * 8;
+  return (long long)(per_group ? G : 1) * L * ns1 * 2 * nh * kWgSlice;
+}
+
 // x (G, N, m), point n, depth i of group g at x[g * x_gstride + n * x_nstride
-// + i * x_istride] with x_istride == 1 (rows) or x_nstride == 1 (x given
-// transposed, as the model passes it); F (L, m, m) when f_gstride is 0,
-// else (G, L, m, m) with f_gstride = L * m * m, contiguous; out (G, L, N)
-// contiguous. All float32 on the device. Launches on `stream`; returns
+// + i * x_istride]; F (L, m, m) when f_gstride is 0, else (G, L, m, m) with
+// f_gstride = L * m * m, contiguous; out (G, L, N) contiguous; `scratch`
+// the floats sat_quad_fwd_scratch_floats reports (may be null when 0). All
+// float32 on the device. The warpgroup-MMA design reads x at any strides;
+// the others take x_istride == 1 (rows) or x_nstride == 1 (x given
+// transposed, as the model passes it). Launches on `stream`; returns
 // cudaGetLastError() (0 = launched).
 int sat_quad_fwd_strided_f32(const void* x, long long x_gstride, long long x_nstride,
                              long long x_istride, const void* F, long long f_gstride, void* out,
-                             int G, int N, int m, int L, void* stream) {
+                             void* scratch, int G, int N, int m, int L, void* stream) {
   if (G <= 0 || N <= 0 || m <= 0 || L <= 0) return 0;
-  const bool xt = x_istride != 1;
-  if (xt && x_nstride != 1) return (int)cudaErrorInvalidValue;
   const float* xf = (const float*)x;
   const float* Ff = (const float*)F;
-  const long long xs = xt ? x_istride : x_nstride;
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
+#if SAT_QUAD_TF32_PASSES == 1
+  {
+    if (wg_path(m)) {
+      if (L > 65535 || G > 65535) return (int)cudaErrorInvalidValue;
+      const BwdPlan p = bwd_plan(G, N, m, L, f_gstride != 0 ? G : 1);
+      if (p.err != 0) return p.err;
+      float* FT = (float*)scratch;
+      switch (wg_np(m)) {
+        case 64: return launch_fwd_wg<64>(p, xf, x_gstride, x_nstride, x_istride, Ff, f_gstride != 0, o, FT, G, N, m, L, s);
+        case 128: return launch_fwd_wg<128>(p, xf, x_gstride, x_nstride, x_istride, Ff, f_gstride != 0, o, FT, G, N, m, L, s);
+        case 200: return launch_fwd_wg<200>(p, xf, x_gstride, x_nstride, x_istride, Ff, f_gstride != 0, o, FT, G, N, m, L, s);
+        default: return launch_fwd_wg<256>(p, xf, x_gstride, x_nstride, x_istride, Ff, f_gstride != 0, o, FT, G, N, m, L, s);
+      }
+    }
+  }
+#endif
+  const bool xt = x_istride != 1;
+  if (xt && x_nstride != 1) return (int)cudaErrorInvalidValue;
+  const long long xs = xt ? x_istride : x_nstride;
   switch (fwd_choice(G, N, m, L)) {
     case kLarge: return launch_fwd<FwdLarge>(xf, x_gstride, xs, xt, Ff, f_gstride, o, G, N, m, L, s);
     case kMedium:
@@ -1435,36 +2321,34 @@ int sat_quad_fwd_strided_f32(const void* x, long long x_gstride, long long x_nst
   }
 }
 
-// The same for a contiguous x (G, N, m).
-int sat_quad_fwd_f32(const void* x, const void* F, long long f_gstride, void* out,
-                     int G, int N, int m, int L, void* stream) {
-  return sat_quad_fwd_strided_f32(x, (long long)N * m, m, 1, F, f_gstride, out, G, N, m, L,
-                                  stream);
-}
-
-// The backward's design at these sizes, into out[11]: column tiles of the
+// The backward's design at these sizes, into out[12]: column tiles of the
 // tensor-core kernels (0: the wide variant), rows of a block, chunk depth,
 // blocks an SM of the dx and the dF kernel, splits of dx's chunks and of
 // dF's rows (each > 1 adds a fixed-order sum), the floats of scratch the
-// backward needs, the warps that share a row group, and the chunk buffers
-// of the dx and the dF kernel. Returns 0, or the CUDA error of the queries.
+// backward needs, the warps that share a row group, the chunk buffers of
+// the dx and the dF kernel, and 1 for the warpgroup-MMA design (0 for the
+// mma.sync ones). Returns 0, or the CUDA error of the queries.
 int sat_quad_bwd_design(int G, int N, int m, int L, int n_groups, long long* out) {
   const BwdPlan p = bwd_plan(G, N, m, L, n_groups);
   if (p.err != 0) return p.err;
-  const long long v[11] = {p.ni, p.ni ? p.rows : TN, p.ni ? BC : TK, p.occ_dx, p.occ_df, p.sx,
-                           p.sf, p.scratch_x + p.scratch_f, p.p, p.stages_dx, p.stages_df};
-  for (int k = 0; k < 11; ++k) out[k] = v[k];
+  const long long scratch = p.wg ? wg_scratch(p) : p.scratch_x + p.scratch_f;
+  const long long v[12] = {p.ni, p.ni ? p.rows : TN, p.wg ? p.nh : p.ni ? BC : TK, p.occ_dx,
+                           p.occ_df, p.sx, p.sf, scratch, p.p,
+                           p.stages_dx, p.stages_df, p.wg ? 1 : 0};
+  for (int k = 0; k < 12; ++k) out[k] = v[k];
   return 0;
 }
 
-// The backward: dy (G, L, N) in, dx (G, N, m) and dF (F's shape) out, x and
-// F as for the forward (x contiguous). `scratch` holds the floats
-// sat_quad_bwd_design reports for the same sizes (may be null when that is
-// 0). Two to four launches on `stream`; returns the first launch error (0 =
-// all launched).
-int sat_quad_bwd_f32(const void* x, const void* F, long long f_gstride, const void* dy,
-                     void* dx, void* dF, void* scratch, int G, int N, int m, int L,
-                     int n_groups, void* stream) {
+// The backward: dy (G, L, N) in, dx (G, N, m) and dF (F's shape) out
+// (contiguous), x and F as for the forward. The mma.sync designs take x
+// contiguous; the warpgroup-MMA design reads it at any strides. `scratch`
+// holds the floats sat_quad_bwd_design reports for the same sizes (may be
+// null when that is 0). Two to five launches on `stream`; returns the first
+// launch error (0 = all launched).
+int sat_quad_bwd_strided_f32(const void* x, long long x_gstride, long long x_nstride,
+                             long long x_istride, const void* F, long long f_gstride,
+                             const void* dy, void* dx, void* dF, void* scratch, int G, int N,
+                             int m, int L, int n_groups, void* stream) {
   if (G <= 0 || N <= 0 || m <= 0 || L <= 0) return 0;
   if (L > 65535 || G > 65535 || n_groups < 1 || G % n_groups != 0)
     return (int)cudaErrorInvalidValue;
@@ -1478,6 +2362,20 @@ int sat_quad_bwd_f32(const void* x, const void* F, long long f_gstride, const vo
   float* dFf = (float*)dF;
   float* sc = (float*)scratch;
   cudaStream_t s = (cudaStream_t)stream;
+#if SAT_QUAD_TF32_PASSES == 1
+  {
+    if (p.wg) {
+      switch (wg_np(m)) {
+        case 64: return launch_bwd_wg<64>(p, xf, x_gstride, x_nstride, x_istride, Ff, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
+        case 128: return launch_bwd_wg<128>(p, xf, x_gstride, x_nstride, x_istride, Ff, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
+        case 200: return launch_bwd_wg<200>(p, xf, x_gstride, x_nstride, x_istride, Ff, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
+        default: return launch_bwd_wg<256>(p, xf, x_gstride, x_nstride, x_istride, Ff, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
+      }
+    }
+  }
+#endif
+  if (x_istride != 1 || x_nstride != m || (G > 1 && x_gstride != (long long)N * m))
+    return (int)cudaErrorInvalidValue;
   switch (p.ni) {
     case 8: return launch_bwd_tc<8>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
     case 16: return launch_bwd_tc<16>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
@@ -1487,6 +2385,14 @@ int sat_quad_bwd_f32(const void* x, const void* F, long long f_gstride, const vo
     case 64: return launch_bwd_tc<64>(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
     default: return launch_bwd_wide(p, xf, Ff, f_gstride, dyf, dxf, dFf, sc, G, N, m, L, n_groups, s);
   }
+}
+
+// The same for a contiguous x (G, N, m).
+int sat_quad_bwd_f32(const void* x, const void* F, long long f_gstride, const void* dy,
+                     void* dx, void* dF, void* scratch, int G, int N, int m, int L,
+                     int n_groups, void* stream) {
+  return sat_quad_bwd_strided_f32(x, (long long)N * m, m, 1, F, f_gstride, dy, dx, dF, scratch,
+                                  G, N, m, L, n_groups, stream);
 }
 
 }  // extern "C"

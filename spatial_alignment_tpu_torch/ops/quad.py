@@ -16,7 +16,13 @@ kernel runs one bf16 pass. The two modes are two builds of ``quad.cu``
 each make t and feed it, in registers, to their second product, their
 chunks split over blocks whose partial sums are added in a fixed order
 (:func:`bwd_design` reports the split; above m = 256 two warps share each
-group of rows, above m = 512 the first design runs, in fp32 tiles).
+group of rows, above m = 512 the first design runs, in fp32 tiles). In the
+one-pass build at m <= 256 with m a multiple of 4 the products run on
+Hopper's warpgroup MMA (``wgmma``) instead of ``mma.sync``, fed by bulk
+copies through a ring of shared-memory slices; a first launch makes
+rounded, pre-tiled copies of F (and, for the backward, of x, which it
+reads at its strides: no contiguous copy is taken), and the backward runs
+its dF pass before its dx pass.
 ``models.core`` sends a quad-diag here
 only under ``quad_diag_impl="pallas"``; otherwise it runs
 :func:`quad_diag_plain` and autograd, as the JAX package's ``xla`` route.
@@ -35,9 +41,11 @@ or raises, a CPU tensor takes the plain forward and the plain backward
 back from one to the other. Everything is float32.
 
 Counters: ``fwd_launches`` and ``bwd_launches`` count kernel launches of the
-forward and of the backward (one backward call launches its two to four
-kernels and counts once); ``plain_calls`` counts forward and backward calls that
-took the plain version because their tensors lay on the CPU.
+forward and of the backward (one backward call launches its two to five
+kernels and counts once); ``wgmma_launches`` counts the forward and
+backward calls that took the warpgroup-MMA design; ``plain_calls`` counts
+forward and backward calls that took the plain version because their
+tensors lay on the CPU.
 A captured training step counts once, at its capture; the training
 loop (``models/train.py``) adds that step's counts once per replay.
 """
@@ -62,9 +70,10 @@ __all__ = [
     "quad_bwd_plain",
 ]
 
-COUNTERS = ("fwd_launches", "bwd_launches", "plain_calls")
+COUNTERS = ("fwd_launches", "bwd_launches", "wgmma_launches", "plain_calls")
 fwd_launches = 0
 bwd_launches = 0
+wgmma_launches = 0
 plain_calls = 0
 
 _libs = {}
@@ -77,10 +86,13 @@ def _library(precision: str = "highest") -> ctypes.CDLL:
     if name not in _libs:
         lib = _build.load(name)
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.sat_quad_fwd_strided_f32.argtypes = [vp, ll, ll, ll, vp, ll, vp, i, i, i, i, vp]
+        lib.sat_quad_fwd_strided_f32.argtypes = [vp, ll, ll, ll, vp, ll, vp, vp, i, i, i, i, vp]
         lib.sat_quad_fwd_strided_f32.restype = i
-        lib.sat_quad_bwd_f32.argtypes = [vp, vp, ll, vp, vp, vp, vp, i, i, i, i, i, vp]
-        lib.sat_quad_bwd_f32.restype = i
+        lib.sat_quad_fwd_scratch_floats.argtypes = [i, i, i, i, i]
+        lib.sat_quad_fwd_scratch_floats.restype = ll
+        lib.sat_quad_bwd_strided_f32.argtypes = [vp, ll, ll, ll, vp, ll, vp, vp, vp, vp,
+                                                 i, i, i, i, i, vp]
+        lib.sat_quad_bwd_strided_f32.restype = i
         lib.sat_quad_bwd_design.argtypes = [i, i, i, i, i, ctypes.POINTER(ll)]
         lib.sat_quad_bwd_design.restype = i
         lib.sat_quad_tf32_passes.argtypes = []
@@ -127,7 +139,7 @@ def _check(x: torch.Tensor, F: torch.Tensor, what: str):
 def quad_fwd_kernel(x: torch.Tensor, F: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     """Launch the forward kernel on the canonical form at ``precision``;
     returns (G, L, N)."""
-    global fwd_launches
+    global fwd_launches, wgmma_launches
     _check(x, F, "quad_fwd_kernel")
     G, N, m, L, per_group = _dims(x, F)
     out = torch.empty((G, L, N), dtype=x.dtype, device=x.device)
@@ -138,11 +150,15 @@ def quad_fwd_kernel(x: torch.Tensor, F: torch.Tensor, precision: str = "highest"
     # in place; any other layout is copied first.
     if x.stride(-1) != 1 and x.stride(-2) != 1:
         x = x.contiguous()
+    lib = _library(precision)
     with torch.cuda.device(x.device):
+        n = lib.sat_quad_fwd_scratch_floats(G, N, m, L, int(per_group))
+        scratch = torch.empty((n,), dtype=x.dtype, device=x.device) if n > 0 else None
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library(precision).sat_quad_fwd_strided_f32(
+        err = lib.sat_quad_fwd_strided_f32(
             x.data_ptr(), *x.stride(), F.data_ptr(), L * m * m if per_group else 0,
-            out.data_ptr(), G, N, m, L, stream,
+            out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+            G, N, m, L, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -150,6 +166,7 @@ def quad_fwd_kernel(x: torch.Tensor, F: torch.Tensor, precision: str = "highest"
             f"(G={G}, N={N}, m={m}, L={L}, precision={precision})"
         )
     fwd_launches += 1
+    wgmma_launches += int(n > 0)
     return out
 
 
@@ -157,7 +174,7 @@ def quad_bwd_kernel(x: torch.Tensor, F: torch.Tensor, dy: torch.Tensor,
                     precision: str = "highest"):
     """Launch the backward kernels on the canonical form at ``precision``;
     returns (dx, dF)."""
-    global bwd_launches
+    global bwd_launches, wgmma_launches
     _check(x, F, "quad_bwd_kernel")
     G, N, m, L, per_group = _dims(x, F)
     if tuple(dy.shape) != (G, L, N) or dy.dtype != torch.float32 or dy.device != x.device:
@@ -166,15 +183,20 @@ def quad_bwd_kernel(x: torch.Tensor, F: torch.Tensor, dy: torch.Tensor,
     dF = torch.empty(F.shape, dtype=F.dtype, device=F.device)
     if dx.numel() == 0 or dF.numel() == 0:
         return dx.zero_(), dF.zero_()
-    x, F, dy = x.contiguous(), F.contiguous(), dy.contiguous()
+    F, dy = F.contiguous(), dy.contiguous()
     n_groups = G if per_group else 1
     with torch.cuda.device(x.device):
         design = bwd_design(G, N, m, L, n_groups, precision)
+        # The warpgroup-MMA design reads x at its strides (its first launch
+        # makes the rounded copy it needs); the others take x by rows.
+        if not design["wgmma"]:
+            x = x.contiguous()
         scratch = torch.empty((design["scratch_floats"],), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library(precision).sat_quad_bwd_f32(
-            x.data_ptr(), F.data_ptr(), L * m * m if per_group else 0, dy.data_ptr(),
-            dx.data_ptr(), dF.data_ptr(), scratch.data_ptr(), G, N, m, L, n_groups, stream,
+        err = _library(precision).sat_quad_bwd_strided_f32(
+            x.data_ptr(), *x.stride(), F.data_ptr(), L * m * m if per_group else 0,
+            dy.data_ptr(), dx.data_ptr(), dF.data_ptr(), scratch.data_ptr(), G, N, m, L,
+            n_groups, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -182,12 +204,13 @@ def quad_bwd_kernel(x: torch.Tensor, F: torch.Tensor, dy: torch.Tensor,
             f"(G={G}, N={N}, m={m}, L={L}, design={design})"
         )
     bwd_launches += 1
+    wgmma_launches += design["wgmma"]
     return dx, dF
 
 
 _DESIGN_KEYS = ("column_tiles", "block_rows", "chunk", "blocks_per_sm_dx", "blocks_per_sm_df",
                 "splits_dx", "splits_df", "scratch_floats", "row_group_warps", "stages_dx",
-                "stages_df")
+                "stages_df", "wgmma")
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,9 +230,13 @@ def bwd_design(G: int, N: int, m: int, L: int, n_groups: int,
     variant), block rows, chunk depth, blocks per SM, splits of dx and of
     dF (each above 1 adds a fixed-order sum), the floats of scratch, the
     warps that share a group of 16 rows (2 above m = 256), the chunk
-    buffers of the dx and the dF kernel, and the TF32 passes of a product
-    at ``precision`` (3, or 1 for ``default``; the wide variant runs fp32
-    tiles whatever the name)."""
+    buffers of the dx and the dF kernel (the ring's slots in the
+    warpgroup-MMA design), ``wgmma`` (1 where that design runs: the
+    one-pass build at m <= 256, m % 4 == 0; its chunk is the dx pass's
+    columns of F a chunk, the accumulator's width to m = 200 and half of it
+    above, and its scratch holds the rounded copies of x and F too), and
+    the TF32 passes of a product at ``precision`` (3, or 1 for
+    ``default``; the wide variant runs fp32 tiles whatever the name)."""
     values = _design(torch.cuda.current_device(), G, N, m, L, n_groups, precision)
     passes = _library(precision).sat_quad_tf32_passes()
     return {**dict(zip(_DESIGN_KEYS, values)), "tf32_passes": passes}

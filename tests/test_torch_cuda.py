@@ -366,34 +366,52 @@ def test_cuda_quad_matches_plain(cuda_device, x_shape, f_shape, transposed):
     assert _rel(dF, dF_p) <= 1e-4
 
 
-# (x shape, F shape, the design's expected values): m = 200 keeps one warp
-# a group of 16 rows (25 column tiles, 128-row blocks, three chunk
-# buffers); the m = 384 fit's data and warp layers take
-# 48 column tiles over two warps a row group, 64-row blocks, two buffers;
-# m = 512 one buffer; above, the wide variant (no column tiles).
+# (x shape, F shape, precision name, the design's expected values): in the
+# 3xTF32 build (``highest``) m = 200 keeps one warp a group of 16 rows (25
+# column tiles, 128-row blocks, three chunk buffers); the m = 384 fit's data
+# and warp layers take 48 column tiles over two warps a row group, 64-row
+# blocks, two buffers; m = 512 one buffer; above, the wide variant (no
+# column tiles). The one-pass build (``default``) runs the warpgroup-MMA
+# design at m <= 256 with m a multiple of 4 (the m = 200 layers: 128-row
+# blocks, whole channels a dx chunk, a ring of four slices; m = 256: half
+# channels, three slices) and the mma.sync ones elsewhere (m = 50, 384).
 _QUAD_DESIGNS = [
-    ((5, 4050, 200), (10, 200, 200),
-     dict(column_tiles=25, block_rows=128, chunk=32, row_group_warps=1, stages_dx=3, stages_df=3)),
-    ((1, 2025, 200), (1, 2, 200, 200),
-     dict(column_tiles=25, block_rows=128, chunk=32, row_group_warps=1, stages_dx=3, stages_df=3)),
-    ((5, 4050, 384), (10, 384, 384),
-     dict(column_tiles=48, block_rows=64, chunk=32, row_group_warps=2, stages_dx=2, stages_df=2)),
-    ((1, 2025, 384), (1, 2, 384, 384),
-     dict(column_tiles=48, block_rows=64, chunk=32, row_group_warps=2, stages_dx=2, stages_df=2)),
-    ((2, 130, 512), (3, 512, 512),
-     dict(column_tiles=64, block_rows=64, chunk=32, row_group_warps=2, stages_dx=1, stages_df=1)),
-    ((2, 77, 520), (1, 520, 520), dict(column_tiles=0, block_rows=64, chunk=64)),
+    ((5, 4050, 200), (10, 200, 200), "highest",
+     dict(column_tiles=25, block_rows=128, chunk=32, row_group_warps=1, stages_dx=3, stages_df=3,
+          wgmma=0)),
+    ((1, 2025, 200), (1, 2, 200, 200), "highest",
+     dict(column_tiles=25, block_rows=128, chunk=32, row_group_warps=1, stages_dx=3, stages_df=3,
+          wgmma=0)),
+    ((5, 4050, 384), (10, 384, 384), "highest",
+     dict(column_tiles=48, block_rows=64, chunk=32, row_group_warps=2, stages_dx=2, stages_df=2,
+          wgmma=0)),
+    ((1, 2025, 384), (1, 2, 384, 384), "highest",
+     dict(column_tiles=48, block_rows=64, chunk=32, row_group_warps=2, stages_dx=2, stages_df=2,
+          wgmma=0)),
+    ((2, 130, 512), (3, 512, 512), "highest",
+     dict(column_tiles=64, block_rows=64, chunk=32, row_group_warps=2, stages_dx=1, stages_df=1,
+          wgmma=0)),
+    ((2, 77, 520), (1, 520, 520), "highest", dict(column_tiles=0, block_rows=64, chunk=64)),
+    ((5, 4050, 200), (10, 200, 200), "default",
+     dict(column_tiles=25, block_rows=128, chunk=200, stages_dx=4, stages_df=4, wgmma=1)),
+    ((1, 2025, 200), (1, 2, 200, 200), "default",
+     dict(column_tiles=25, block_rows=128, chunk=200, stages_dx=4, stages_df=4, wgmma=1)),
+    ((2, 4049, 256), (3, 256, 256), "default",
+     dict(column_tiles=32, block_rows=128, chunk=128, stages_dx=3, stages_df=3, wgmma=1)),
+    ((5, 200, 50), (30, 50, 50), "default", dict(column_tiles=8, chunk=32, wgmma=0)),
+    ((5, 4050, 384), (10, 384, 384), "default", dict(column_tiles=48, block_rows=64, wgmma=0)),
 ]
 
 
-@pytest.mark.parametrize("x_shape,f_shape,want", _QUAD_DESIGNS)
-def test_cuda_quad_bwd_design(cuda_device, x_shape, f_shape, want):
-    """What the backward launches (``bwd_design``) by m: the tensor-core
-    design through m = 512, split over blocks so that the m = 384 warp
-    layer's 32 row blocks fill the card."""
+@pytest.mark.parametrize("x_shape,f_shape,precision,want", _QUAD_DESIGNS)
+def test_cuda_quad_bwd_design(cuda_device, x_shape, f_shape, precision, want):
+    """What the backward launches (``bwd_design``) by m and build: the
+    tensor-core design through m = 512, split over blocks so that the
+    m = 384 warp layer's 32 row blocks fill the card; the one-pass build's
+    warpgroup-MMA design at m <= 256, m % 4 == 0."""
     G, N, m = x_shape
     n_groups = G if len(f_shape) == 4 else 1
-    design = quad.bwd_design(G, N, m, f_shape[-3], n_groups)
+    design = quad.bwd_design(G, N, m, f_shape[-3], n_groups, precision)
     assert {k: design[k] for k in want} == want
     if want["column_tiles"]:
         assert design["blocks_per_sm_dx"] >= 1 and design["blocks_per_sm_df"] >= 1
@@ -402,20 +420,29 @@ def test_cuda_quad_bwd_design(cuda_device, x_shape, f_shape, want):
 
 
 # The one-pass TF32 builds (``default``) at the path's shapes and at the
-# edges of both backward designs (m = 37, 257, 384, 512) and the wide one.
-_QUADS_TF32 = [_QUADS[i] for i in (0, 1, 2, 4, 13, 17, 18, 22, 24)]
+# edges of the mma.sync backward designs (m = 37, 257, 384, 512) and the wide
+# one; then the warpgroup-MMA design's edges: m = 196 (a multiple of 4, not
+# of 8) and m = 256 at a ragged N of 4,049, m = 64 with per-group factors,
+# and the restart-folded data layer (R = 4: x (20, 4050, 200)).
+_QUADS_TF32 = [_QUADS[i] for i in (0, 1, 2, 4, 13, 17, 18, 22, 24)] + [
+    ((3, 4049, 196), (3, 196, 196)), ((2, 4049, 256), (3, 256, 256)),
+    ((2, 333, 64), (2, 3, 64, 64)), ((20, 4050, 200), (10, 200, 200))]
 
 
+@pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("x_shape,f_shape", _QUADS_TF32)
-def test_cuda_quad_tf32_within_bound(cuda_device, x_shape, f_shape):
+def test_cuda_quad_tf32_within_bound(cuda_device, x_shape, f_shape, transposed):
     """The ``default`` (one TF32 pass) forward and backward: within
     ``chip_smoke.error_bounds`` of float64 (operands rounded to TF32),
     within the sum of theirs and cuBLAS TF32's (truncation allowed) of the
     plain version at ``default``, two launches bit-equal, and the 3xTF32
-    build untouched by them; PyTorch's TF32 flags as they were."""
+    build untouched by them; PyTorch's TF32 flags as they were. x by rows,
+    or a transposed view as the model passes it."""
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
     rng = np.random.default_rng(12)
     x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).to(cuda_device)
+    if transposed:
+        x = x.transpose(-1, -2).contiguous().transpose(-1, -2)
     F = torch.from_numpy((0.1 * rng.standard_normal(f_shape)).astype(np.float32)).to(cuda_device)
     dy = torch.from_numpy(
         rng.standard_normal((x_shape[0], f_shape[-3], x_shape[1])).astype(np.float32)
@@ -436,6 +463,24 @@ def test_cuda_quad_tf32_within_bound(cuda_device, x_shape, f_shape):
         assert float(((k.double() - p.double()).abs() / (b + bp)).max()) <= 1.0
     assert _rel(three, bounds[0][0]) <= 1e-4
     assert (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()) == flags
+
+
+@pytest.mark.parametrize("precision,m,taken", [("default", 200, True), ("highest", 200, False),
+                                               ("default", 50, False), ("default", 384, False)])
+def test_cuda_quad_wgmma_launches(cuda_device, precision, m, taken):
+    """``wgmma_launches`` counts the forward and backward calls that took
+    the warpgroup-MMA design: the one-pass build at m = 200, not the 3xTF32
+    build, nor m = 50 (not a multiple of 4) or m = 384 (above 256)."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((2, 300, m)).astype(np.float32)).to(cuda_device)
+    F = torch.from_numpy((0.1 * rng.standard_normal((3, m, m))).astype(np.float32)).to(cuda_device)
+    dy = torch.from_numpy(rng.standard_normal((2, 3, 300)).astype(np.float32)).to(cuda_device)
+    before = (quad.wgmma_launches, quad.fwd_launches, quad.bwd_launches)
+    quad.quad_fwd_kernel(x, F, precision)
+    quad.quad_bwd_kernel(x, F, dy, precision)
+    torch.cuda.synchronize()
+    assert (quad.fwd_launches, quad.bwd_launches) == (before[1] + 1, before[2] + 1)
+    assert quad.wgmma_launches == before[0] + (2 if taken else 0)
 
 
 def test_cuda_precision_matmul_runs_tf32_both_ways(cuda_device):

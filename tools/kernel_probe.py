@@ -1,26 +1,30 @@
 #!/usr/bin/env python3
-"""Hold the Cholesky, fused-factor, triangular-solve, quad-diag backward and
+"""Hold the Cholesky, fused-factor, triangular-solve, quad-diag and
 cross-Gram CUDA kernels of this checkout against an earlier checkout's on
-one GPU: the same results bit for bit (the quad backward above m = 256:
-each against its plain version), and their times in turns.
+one GPU: the same results bit for bit (where a quad design changed: each
+against float64 within its error bound), and their times in turns.
 
     python3 tools/kernel_probe.py --parent DIR [--kernels LIST] [--out FILE]
 
 DIR is an earlier checkout, e.g. unpacked with
 ``git archive <rev> spatial_alignment_tpu_torch/csrc | tar -x -C DIR``.
 Builds both checkouts' csrc/{cholesky,factor,trisolve,quad,gram}.cu (those
-LIST names: cholesky, factor, trisolve, quad_bwd, gram; default all) with
-the flags of ``spatial_alignment_tpu_torch/ops/_build.py`` and runs them on
-the same inputs at the shapes of the fits' paths. It raises when the two
-Cholesky, factor, solve or Gram results differ in any bit: these kernels'
-rounding is part of their contract (the headers of csrc/common.cuh and
-csrc/gram.cu); only the fused factor's L^-1 above m = 240, which the panel
-design rounds as the shared-memory design does, is held to the plain
-version (rel 1e-4). The quad backward is held bit for bit to the earlier
-checkout's at m <= 256; above, where an earlier design may round otherwise,
-each checkout's is held against ``quad_bwd_plain`` (rel 1e-4, the card
-tests' limit). This checkout's quad backward is launched twice and held
-bit-equal. Then it times each in turns (parent, this, this, parent) by
+LIST names: cholesky, factor, trisolve, quad_bwd, gram; default all), and
+quad.cu's one-pass TF32 build (``quad_tf32``), with the flags of
+``spatial_alignment_tpu_torch/ops/_build.py`` and runs them on the same
+inputs at the shapes of the fits' paths. It raises when the two Cholesky,
+factor, solve or Gram results differ in any bit: these kernels' rounding is
+part of their contract (the headers of csrc/common.cuh and csrc/gram.cu);
+only the fused factor's L^-1 above m = 240, which the panel design rounds
+as the shared-memory design does, is held to the plain version (rel 1e-4).
+The quad backward (and, in the one-pass build, the forward) of each
+checkout is held to its plain version in the 3xTF32 build (rel 1e-4) and to
+float64 within ``chip_smoke.error_bounds`` (TF32) in the one-pass build,
+and bit for bit to the earlier checkout's where this checkout runs the same
+design: the 3xTF32 build everywhere, the one-pass build at m = 50 and above
+m = 256 (not where it runs the warpgroup-MMA design, m <= 256, m % 4 == 0).
+This checkout's quad kernels are launched twice and held bit-equal. Then it
+times each in turns (parent, this, this, parent) by
 ``chip_smoke.median_ms`` (device time per call, the host's issue time left
 out), beside the PyTorch library call for the same function (the Gram: the
 expansion form, the quad backward: its plain version). The Gram rows also
@@ -41,7 +45,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SOURCES = ("cholesky", "factor", "trisolve", "quad", "gram")
+SOURCES = ("cholesky", "factor", "trisolve", "quad", "quad_tf32", "gram")
 KERNELS = ("cholesky", "factor", "trisolve", "quad_bwd", "gram")
 TAGS = ("parent", "this")
 # Shapes on the fits' paths: the m = 200 and m = 384 final slabs and jitter
@@ -56,9 +60,11 @@ SOLVES = [((1, 200, 200), (1, 200, 2), False), ((1, 200, 200), (1, 200, 2), True
           ((50, 50), (5, 50, 200), False), ((50, 50), (5, 50, 200), True),
           ((1, 50, 50), (1, 50, 100), False), ((1, 50, 50), (1, 50, 100), True),
           ((2, 200, 200), None, False)]
-# Quad-diag backward (x shape, F shape): the m = 200 fit's data and warp
-# layers, the m = 50 fit's, the m = 384 fit's, and the m = 384 ones at
-# m = 512, the widest m of the tensor-core design (off the paths).
+# Quad-diag (x shape, F shape): the m = 200 fit's data and warp layers, the
+# m = 50 fit's, the m = 384 fit's, and the m = 384 ones at m = 512, the
+# widest m of the tensor-core design (off the paths). The backward runs at
+# all of them in both builds, the forward in the one-pass build at the
+# m = 200 and m = 50 ones.
 QUAD_BWD = [((5, 4050, 200), (10, 200, 200)), ((1, 2025, 200), (1, 2, 200, 200)),
             ((5, 200, 50), (30, 50, 50)), ((1, 100, 50), (1, 2, 50, 50)),
             ((5, 4050, 384), (10, 384, 384)), ((1, 2025, 384), (1, 2, 384, 384)),
@@ -76,7 +82,9 @@ def build(out_dir: Path, csrc: Path, name: str, tag: str):
     from spatial_alignment_tpu_torch.ops import _build
 
     out = out_dir / f"lib{name}-{tag}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(csrc / f"{name}.cu")]
+    source, flags = _build.VARIANTS.get(name, (name, ()))
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(out),
+           str(csrc / f"{source}.cu")]
     return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -108,6 +116,14 @@ def bind(path: Path) -> ctypes.CDLL:
         lib.sat_quad_bwd_f32.argtypes = [vp, vp, ll, vp, vp, vp, vp, i, i, i, i, i,
                                          *([i] if first else []), vp]
         lib.sat_quad_bwd_f32.restype = i
+    if hasattr(lib, "sat_quad_fwd_strided_f32"):  # a scratch pointer since the wgmma design
+        scratch = hasattr(lib, "sat_quad_fwd_scratch_floats")
+        lib.sat_quad_fwd_strided_f32.argtypes = [vp, ll, ll, ll, vp, ll, vp,
+                                                 *([vp] if scratch else []), i, i, i, i, vp]
+        lib.sat_quad_fwd_strided_f32.restype = i
+        if scratch:
+            lib.sat_quad_fwd_scratch_floats.argtypes = [i, i, i, i, i]
+            lib.sat_quad_fwd_scratch_floats.restype = ll
     return lib
 
 
@@ -134,7 +150,7 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     csrcs = {"parent": args.parent / "spatial_alignment_tpu_torch" / "csrc",
              "this": ROOT / "spatial_alignment_tpu_torch" / "csrc"}
-    names = [n for n in SOURCES if (n if n != "quad" else "quad_bwd") in kernels]
+    names = [n for n in SOURCES if (n if not n.startswith("quad") else "quad_bwd") in kernels]
     jobs = {(t, name): build(out_dir, csrcs[t], name, t) for t in TAGS for name in names}
     libs = {}
     for key, (path, proc) in jobs.items():
@@ -268,8 +284,9 @@ def main() -> int:
     if "gram" in kernels:
         record["gram"] = probe_gram(libs, gen, stream, launched, held, in_turns)
     record["bit_equal_to_parent"] = [k for k in ("cholesky", "factor", "trisolve", "gram")
-                                     if k in kernels] + (["quad_bwd at m <= 256"]
-                                                         if "quad_bwd" in kernels else [])
+                                     if k in kernels] + (
+        ["quad 3xTF32", "quad one-pass where the design is unchanged"]
+        if "quad_bwd" in kernels else [])
     text = json.dumps(record)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(text + "\n")
@@ -278,75 +295,105 @@ def main() -> int:
 
 
 def probe_quad_bwd(libs, gen, stream, launched, held, in_turns):
-    """Each checkout's quad backward against the plain version at the fits'
-    shapes, this checkout's launched twice and held bit-equal, and held bit
-    for bit to the parent's at m <= 256; then both timed in turns (no
-    library call computes it)."""
+    """Each checkout's quad backward in both builds, and forward in the
+    one-pass build, at the fits' shapes: held against the plain version
+    (3xTF32) or float64 within the TF32 bound (one pass), this checkout's
+    launched twice and held bit-equal, and held bit for bit to the parent's
+    where this checkout runs the parent's design; then both timed in turns
+    (no library call computes them)."""
     import torch
-    from chip_smoke import bit_equal, rel_err
+    from chip_smoke import bit_equal, error_bounds, rel_err
     from spatial_alignment_tpu_torch.ops import quad
 
     rows = []
-    for x_shape, f_shape in QUAD_BWD:
-        G, N, m = x_shape
-        L = f_shape[-3]
-        n_groups = G if len(f_shape) == 4 else 1
-        x = torch.randn(x_shape, generator=gen, device="cuda")
-        F = 0.1 * torch.randn(f_shape, generator=gen, device="cuda")
-        dy = torch.randn((G, L, N), generator=gen, device="cuda")
-        fg = L * m * m if n_groups > 1 else 0
+    keep = []
+    for build, name in (("quad", "3xtf32"), ("quad_tf32", "tf32")):
+        for x_shape, f_shape in QUAD_BWD:
+            G, N, m = x_shape
+            L = f_shape[-3]
+            n_groups = G if len(f_shape) == 4 else 1
+            x = torch.randn(x_shape, generator=gen, device="cuda")
+            F = 0.1 * torch.randn(f_shape, generator=gen, device="cuda")
+            dy = torch.randn((G, L, N), generator=gen, device="cuda")
+            fg = L * m * m if n_groups > 1 else 0
+            forward = build == "quad_tf32" and m in (50, 200)
 
-        def runner(t):
-            lib = libs[(t, "quad")]
-            dx, dF = torch.empty_like(x), torch.empty_like(F)
-            if hasattr(lib, "sat_quad_bwd_design"):
-                d = (ctypes.c_longlong * 16)()  # 8 values before the paired-warp design, 11 since
-                launched(lib.sat_quad_bwd_design(G, N, m, L, n_groups, d), f"design {t}")
-                design = list(d)[:11]
+            def design_of(lib, what):
+                d = (ctypes.c_longlong * 16)()  # 8 values before the paired-warp design, 11, then 12
+                launched(lib.sat_quad_bwd_design(G, N, m, L, n_groups, d), f"design {what}")
+                return list(d)[:12]
+
+            def runner(t):
+                lib = libs[(t, build)]
+                design = design_of(lib, t)
+                dx, dF = torch.empty_like(x), torch.empty_like(F)
                 scratch = torch.empty((design[7],), device="cuda")
+                out = torch.empty((G, L, N), device="cuda")
+                fscratch = []
+                if hasattr(lib, "sat_quad_fwd_scratch_floats"):
+                    n = lib.sat_quad_fwd_scratch_floats(G, N, m, L, int(n_groups > 1))
+                    keep.append(torch.empty((max(n, 1),), device="cuda"))
+                    fscratch = [keep[-1].data_ptr()]
+                keep.append(scratch)
 
-                def run():
+                def bwd():
                     launched(lib.sat_quad_bwd_f32(
                         x.data_ptr(), F.data_ptr(), fg, dy.data_ptr(), dx.data_ptr(),
                         dF.data_ptr(), scratch.data_ptr(), G, N, m, L, n_groups, stream()),
                         f"quad_bwd {t}")
-            else:  # the first design's entry: partial sums sized by its splits
-                design = None
-                splits = lib.sat_quad_bwd_splits(G, N, m, L, n_groups)
-                partial = torch.empty((splits * n_groups * L * m * m,), device="cuda")
 
-                def run():
-                    launched(lib.sat_quad_bwd_f32(
-                        x.data_ptr(), F.data_ptr(), fg, dy.data_ptr(), dx.data_ptr(),
-                        dF.data_ptr(), partial.data_ptr(), G, N, m, L, n_groups, splits,
-                        stream()), f"quad_bwd {t}")
-            return run, dx, dF, design
+                def fwd():
+                    launched(lib.sat_quad_fwd_strided_f32(
+                        x.data_ptr(), N * m, m, 1, F.data_ptr(), fg, out.data_ptr(), *fscratch,
+                        G, N, m, L, stream()), f"quad_fwd {t}")
+                return bwd, fwd, (dx, dF), out, design
 
-        dxp, dFp = quad.quad_bwd_plain(x, F, dy)
-        fns, rels, design, outs = {}, {}, None, {}
-        for t in TAGS:
-            run, dx, dF, d = runner(t)
-            run()
-            torch.cuda.synchronize()
-            outs[t] = (dx, dF)
-            rels[t] = max(rel_err(dx, dxp), rel_err(dF, dFp))
-            if rels[t] > 1e-4:
-                raise AssertionError(f"quad_bwd {t} {x_shape}: rel {rels[t]} to plain")
-            if t == "this":
-                design = d
-                first = (dx.clone(), dF.clone())
-                run()
+            precision = "highest" if build == "quad" else "default"
+            plain = quad.quad_bwd_plain(x, F, dy, precision)
+            bounds = error_bounds(x, F, dy, "tf32") if build == "quad_tf32" else None
+            this_design = design_of(libs[("this", build)], "this")
+            same_design = build == "quad" or not this_design[11]
+            fns, ffns, errs, outs, fouts = {}, {}, {}, {}, {}
+            for t in TAGS:
+                bwd, fwd, grads, out, design = runner(t)
+                bwd()
+                if forward:
+                    fwd()
                 torch.cuda.synchronize()
-                if not (bit_equal(first[0], dx) and bit_equal(first[1], dF)):
-                    raise AssertionError(f"quad_bwd {x_shape}: two launches differ")
-            fns[t] = run
-        if m <= 256:
-            held(outs, f"quad_bwd {x_shape}")
-        fns["library"] = lambda: quad.quad_bwd_plain(x, F, dy)
-        rows.append({"x": list(x_shape), "F": list(f_shape), "rel_vs_plain": rels,
-                     "design_this": design, "bit_equal_twice": True,
-                     "bit_equal_to_parent": m <= 256,
-                     "ms": in_turns(fns), "library_is": "quad_bwd_plain (no library call)"})
+                if bounds is None:
+                    errs[t] = max(rel_err(g, p) for g, p in zip(grads, plain))
+                    if errs[t] > 1e-4:
+                        raise AssertionError(f"quad_bwd {t} {x_shape}: rel {errs[t]} to plain")
+                else:  # the error over its bound, each output of the backward (and forward)
+                    got = ((out,) if forward else ()) + grads
+                    bnd = bounds if forward else bounds[1:]
+                    errs[t] = max(float(((k.double() - e).abs() / b).max())
+                                  for k, (e, b) in zip(got, bnd))
+                    if errs[t] > 1.0:
+                        raise AssertionError(f"quad {name} {t} {x_shape}: {errs[t]} of the bound")
+                if t == "this":
+                    first = [g.clone() for g in grads] + [out.clone()]
+                    bwd()
+                    if forward:
+                        fwd()
+                    torch.cuda.synchronize()
+                    if not all(bit_equal(a, b) for a, b in zip(first, [*grads, out])):
+                        raise AssertionError(f"quad {name} {x_shape}: two launches differ")
+                fns[t], ffns[t], outs[t], fouts[t] = bwd, fwd, grads, [out]
+            if same_design:
+                held(outs, f"quad_bwd {name} {x_shape}")
+                if forward:
+                    held(fouts, f"quad_fwd {name} {x_shape}")
+            fns["library"] = lambda: quad.quad_bwd_plain(x, F, dy, precision)
+            row = {"build": name, "x": list(x_shape), "F": list(f_shape),
+                   ("rel_vs_plain" if bounds is None else "err_over_bound"): errs,
+                   "design_this": this_design, "bit_equal_twice": True,
+                   "bit_equal_to_parent": same_design, "ms": in_turns(fns),
+                   "library_is": "quad_bwd_plain (no library call)"}
+            if forward:
+                ffns["library"] = lambda: quad.quad_diag_plain(x, F, precision)
+                row["fwd_ms"] = in_turns(ffns)
+            rows.append(row)
     return rows
 
 
