@@ -97,17 +97,17 @@ def calibrate(resolved: dict, program_seeds, other_seeds: dict, device: str = "c
     out = {}
 
     def program(tr, seed):
-        model, X, Y, nsl, init, prog = harness.setup(cfg, tr, seed, dev)
-        harness.program_outputs(model, X, nsl, cfg, prog)
+        model, data, init, prog = harness.setup(cfg, tr, seed, dev)
+        harness.program_outputs(model, data, cfg, prog)
         del model
         harness.free(dev)
-        return X, Y, nsl, init, prog
+        return data, init, prog
 
     todo = sorted(set(program_seeds) | {s for v in other_seeds.values() for s in v})
     for seed in todo:
         t0 = time.perf_counter()
-        X, Y, nsl, init, prog = program(traffic, seed)
-        ref = harness.follow_reference(init, X, Y, nsl, cfg, traffic, seed, reference.Precision())
+        data, init, prog = program(traffic, seed)
+        ref = harness.follow_reference(init, data, cfg, traffic, seed, reference.Precision())
         kinds = {}
         if seed in program_seeds:
             kinds["program"] = prog
@@ -121,7 +121,7 @@ def calibrate(resolved: dict, program_seeds, other_seeds: dict, device: str = "c
                     continue
                 precision = (reference.Precision("control" if kind == "lowered" else kind)
                              if kind in WITNESSES else reference.Precision("reference", fault=kind))
-                kinds[kind] = harness.follow_reference(init, X, Y, nsl, cfg, traffic, seed,
+                kinds[kind] = harness.follow_reference(init, data, cfg, traffic, seed,
                                                        precision)
             except RuntimeError as e:
                 # A control that crashes has failed and gives no reading.
@@ -129,7 +129,7 @@ def calibrate(resolved: dict, program_seeds, other_seeds: dict, device: str = "c
                 emit(json.dumps({"seed": seed, "kind": kind, "crashed": str(e)[:300]}))
                 harness.free(dev)
         for kind, got in kinds.items():
-            r = harness.readings(got, ref, X)
+            r = harness.readings(got, ref, data)
             out.setdefault(kind, []).append(r)
             emit(json.dumps({"seed": seed, "kind": kind, **r, "worst": _worst(got, ref),
                              "seconds": time.perf_counter() - t0}))

@@ -48,11 +48,12 @@ def first_steps(model, cfg: dict, traffic: dict) -> dict:
     return {"losses": losses, "grads": grads, "params": params}
 
 
-def follow(init: dict, X, Y, nsl, cfg: dict, traffic: dict, seed: int,
+def follow(init: dict, data: dict, cfg: dict, traffic: dict, seed: int,
            precision: reference.Precision) -> tuple:
     """The reference's (losses, first gradients, parameters) through the
-    same steps, its draws from a generator seeded as the model's."""
-    return reference.follow(init, X, Y, nsl, cfg, FIRST_CALLS, seed, precision,
+    same steps on ``data`` ({modality: (coordinates, outputs, counts)}),
+    its draws from a generator seeded as the model's."""
+    return reference.follow(init, data, cfg, FIRST_CALLS, seed, precision,
                             minibatch=traffic.get("minibatch_size"))
 
 

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+SPATIAL_DIMS = 2
+
 
 def points_per_view(data: dict) -> list:
     return [int(data["grid_size"]) ** 2] * int(data["n_views"])

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+SPATIAL_DIMS = 2
+
 
 def points_per_view(data: dict) -> list:
     return [int(data["n_per_view"])] * 2

@@ -12,6 +12,14 @@ generator ``generators/<generator>.py`` and each per-layer metric's reader
 ``metrics/<metric>.py``, all found by name. Nothing here names a cell, a
 configuration, an entry, a generator or a metric.
 
+A configuration's model has one modality or several (:mod:`.datagen` gives
+the schema): ``model.n_latent_gps`` an integer (the one modality
+``expression`` through that many LMC latents) or ``{modality: int |
+null}`` (null: no LMC), and ``model.n_noise_variance_params`` optional.
+The data passes through here as {modality: (coordinates, outputs,
+per-view counts)} in the model's order; the aligned coordinates compared
+are the moving view's points of every modality, in that order.
+
 The program under test is ``spatial_alignment_tpu_torch``, imported inside
 the functions that use it; the reference (:mod:`.reference`) imports
 nothing of it.
@@ -35,7 +43,6 @@ from gpsa_bench import byname, datagen, peaks, reference
 BENCH_DIR = byname.BENCH_DIR
 ROOT = BENCH_DIR.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "spatial_alignment_tpu")
-MOD = "expression"  # the configurations' one modality
 
 
 # ---------------------------------------------------------------------------
@@ -107,14 +114,23 @@ def flat(tree, prefix: str = "") -> dict:
 
 def _lloyd(x: torch.Tensor, k: int, gen, iters: int = 20) -> torch.Tensor:
     """k-means centres of x (n, D): k points drawn without replacement,
-    then ``iters`` Lloyd steps."""
+    then ``iters`` Lloyd steps. The clusters' sums are taken on the host,
+    where ``index_add_`` adds in one order: on a CUDA device it adds by
+    atomics, and the centres, and so the whole start, would differ by
+    rounding from one process to the next at the same seed."""
     c = x[torch.randperm(x.shape[0], generator=gen, device=x.device)[:k]].clone()
+    x_host = x.cpu()
     for _ in range(iters):
         lab = torch.cdist(x, c).argmin(1)
-        sums = torch.zeros_like(c).index_add_(0, lab, x)
+        sums = torch.zeros_like(x_host[:k]).index_add_(0, lab.cpu(), x_host).to(x.device)
         cnt = torch.bincount(lab, minlength=k).to(x.dtype)
         c = torch.where(cnt[:, None] > 0, sums / cnt.clamp_min(1)[:, None], c)
     return c
+
+
+def _view(nsl, v: int) -> slice:
+    """View ``v``'s rows of a modality whose views hold ``nsl`` points."""
+    return slice(sum(nsl[:v]), sum(nsl[:v + 1]))
 
 
 def _prior_factor(Z: torch.Tensor, log_ls: float, log_var: float) -> torch.Tensor:
@@ -126,35 +142,40 @@ def _prior_factor(Z: torch.Tensor, log_ls: float, log_var: float) -> torch.Tenso
         Z.shape[0], dtype=K.dtype, device=K.device))
 
 
-def make_init(cfg: dict, X: torch.Tensor, nsl, seed: int) -> dict:
+def make_init(cfg: dict, data: dict, seed: int) -> dict:
     """The configuration's own starting parameters (its ``init``), drawn
-    from ``seed`` on X's device, in place of the constructor's; both the
-    program and the reference start from them.
+    from ``seed`` on the data's device, in place of the constructor's; both
+    the program and the reference start from them.
 
-    Inducing points are k-means centres of each view's and of all
-    coordinates, as the model's constructor places them; the kernels'
-    log lengthscales and the variational posteriors' shape are the
-    configuration's ``init``. Each posterior is shaped by its prior, as a
-    trained model's is: the mean is the prior mean plus ``warp_scale`` (warp
-    layer) or one (data layer) times a draw from the prior, and the factor
-    of the covariance is sqrt(``posterior_scale``) chol(Kuu) (I + 0.1 E)
-    for a standard normal E. (At the constructor's own starting point,
-    lengthscales 10, 0.1 randn factors and randn means, the program's
-    float32 Grams by the expansion |x|^2 + |z|^2 - 2 x.z lose three digits
-    of the step: PERF.md, Open questions.) LMC weights and the data kernel's variance
-    are randn, the noise randn - 1, the warp kernels' variance 1, as the
-    constructor draws them."""
+    Inducing points are k-means centres of each view's points of every
+    modality and of all coordinates, as the model's constructor places
+    them; the kernels' log lengthscales and the variational posteriors'
+    shape are the configuration's ``init``. Each posterior is shaped by its
+    prior, as a trained model's is: the mean is the prior mean plus
+    ``warp_scale`` (warp layer) or one (data layer) times a draw from the
+    prior, and the factor of the covariance is sqrt(``posterior_scale``)
+    chol(Kuu) (I + 0.1 E) for a standard normal E. (At the constructor's
+    own starting point, lengthscales 10, 0.1 randn factors and randn means,
+    the program's float32 Grams by the expansion |x|^2 + |z|^2 - 2 x.z lose
+    three digits of the step: PERF.md, Open questions.) Each modality has
+    its own data-layer posterior, of L latents with LMC and of P without,
+    and a W only with LMC. LMC weights and the data kernel's variance are
+    randn, the ``n_noise_variance_params`` noise terms randn - 1, the warp
+    kernels' variance 1, as the constructor draws them. The draws come in
+    one order whatever the modalities: the k-means, the data kernel's
+    variance, the noise, the warp posterior, then each modality's
+    posterior and W in turn."""
     model, init_cfg = cfg["model"], cfg["init"]
-    V, D = len(nsl), X.shape[1]
-    mX, mG, L = int(model["m_X_per_view"]), int(model["m_G"]), int(model["n_latent_gps"])
-    P = int(cfg["data"]["n_outputs"])
-    gen = torch.Generator(device=X.device)
+    lmc = datagen.modalities(cfg)
+    X0, _, nsl0 = next(iter(data.values()))
+    V, D, dev = len(nsl0), X0.shape[1], X0.device
+    mX, mG = int(model["m_X_per_view"]), int(model["m_G"])
+    gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed) * 2 + 2)
-    dev = X.device
     randn = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=torch.float64)
-    offs = [sum(nsl[:v]) for v in range(V)]
-    Xtilde = torch.stack([_lloyd(X[o:o + n], mX, gen) for o, n in zip(offs, nsl)])
-    Gtilde = _lloyd(X, mG, gen)
+    view = lambda v: torch.cat([x[_view(nsl, v)] for x, _, nsl in data.values()])
+    Xtilde = torch.stack([_lloyd(view(v), mX, gen) for v in range(V)])
+    Gtilde = _lloyd(torch.cat([x for x, _, _ in data.values()]), mG, gen)
     wls, dls = float(init_cfg["warp_log_lengthscale"]), float(init_cfg["data_log_lengthscale"])
     c = math.sqrt(float(init_cfg["posterior_scale"]))
     data_var = randn(1)
@@ -163,7 +184,7 @@ def make_init(cfg: dict, X: torch.Tensor, nsl, seed: int) -> dict:
     shaped = lambda Lk, *lead: c * Lk @ (torch.eye(Lk.shape[-1], dtype=Lk.dtype, device=dev)
                                          + 0.1 * randn(*lead, Lk.shape[-1], Lk.shape[-1]))
     init = {
-        "noise_variance": randn(2) - 1.0,
+        "noise_variance": randn(int(model.get("n_noise_variance_params", 2))) - 1.0,
         "warp_kernel_variances": torch.zeros(V, device=dev),
         "warp_kernel_lengthscales": torch.full((V,), wls, device=dev),
         "data_kernel_lengthscale": torch.full((1,), dls, device=dev),
@@ -172,25 +193,28 @@ def make_init(cfg: dict, X: torch.Tensor, nsl, seed: int) -> dict:
         "Gtilde": Gtilde,
         "delta_G": Xtilde + float(init_cfg["warp_scale"]) * (Lw @ randn(V, mX, D)),
         "Omega_sqt_G": shaped(Lw[:, None], V, D),
-        f"Omega_sqt_F/{MOD}": shaped(Ld, L),
-        f"delta_F/{MOD}": Ld @ randn(mG, L),
-        f"W/{MOD}": randn(L, P),
     }
+    for mod, (_, Y, _) in data.items():
+        P = Y.shape[1]
+        L = P if lmc[mod] is None else lmc[mod]
+        init[f"Omega_sqt_F/{mod}"] = shaped(Ld, L)
+        init[f"delta_F/{mod}"] = Ld @ randn(mG, L)
+        if lmc[mod] is not None:
+            init[f"W/{mod}"] = randn(L, P)
     return {k: v.float().contiguous() for k, v in init.items()}
 
 
-def build_model(cfg: dict, traffic: dict, X, Y, nsl, seed: int, device):
+def build_model(cfg: dict, traffic: dict, data: dict, seed: int, device):
     """The program's model of configuration ``cfg`` with the traffic's
     model options, constructed as a user does (its own seeded init)."""
     from spatial_alignment_tpu_torch import VariationalGPSA
 
     kw = dict(cfg["model"])
     kw.update(traffic.get("model_options") or {})
-    n_latent = kw.pop("n_latent_gps")
-    data = {MOD: {"spatial_coords": X.cpu().numpy(), "outputs": Y.cpu().numpy(),
-                  "n_samples_list": list(nsl)}}
-    return VariationalGPSA(data, n_latent_gps={MOD: n_latent}, seed=int(seed),
-                           device=device, **kw)
+    kw["n_latent_gps"] = datagen.modalities(cfg)
+    data_dict = {mod: {"spatial_coords": X.cpu().numpy(), "outputs": Y.cpu().numpy(),
+                       "n_samples_list": list(nsl)} for mod, (X, Y, nsl) in data.items()}
+    return VariationalGPSA(data_dict, seed=int(seed), device=device, **kw)
 
 
 def install(model, init: dict):
@@ -236,7 +260,7 @@ def leaf_gaps(prog: dict, ref: dict) -> dict:
             "change": dict(zip(moving, _leaf_gaps(d_prog, d_ref, moving)))}
 
 
-def readings(prog: dict, ref: dict, X) -> dict:
+def readings(prog: dict, ref: dict, data: dict) -> dict:
     """The numbers that can be compared (a cell's limits file names those
     that are): ``loss`` the largest relative gap of the first steps'
     losses, ``loss_first`` the first step's; ``grad`` the first gradient's
@@ -244,11 +268,12 @@ def readings(prog: dict, ref: dict, X) -> dict:
     ``change_median`` the same of the parameters' change over the first
     steps (:func:`leaf_gaps`); ``aligned`` the largest gap of the moving
     view's aligned coordinates after them and ``aligned_start`` at the
-    starting parameters, over the extent of the coordinates X."""
+    starting parameters, over the extent of all modalities' coordinates."""
     gaps = [abs(a - b) / abs(b) for a, b in zip(prog["losses"], ref["losses"])]
     leaves = leaf_gaps(prog, ref)
     grad, change = list(leaves["grad"].values()), list(leaves["change"].values())
-    extent = float((X.max(0).values - X.min(0).values).max())
+    coords = torch.cat([x for x, _, _ in data.values()])
+    extent = float((coords.max(0).values - coords.min(0).values).max())
     gap = lambda k: float((prog[k].double() - ref[k]).abs().max()) / extent
     return {"loss": max(gaps), "loss_first": gaps[0], "grad": max(grad),
             "grad_median": statistics.median(grad), "change": max(change),
@@ -256,17 +281,17 @@ def readings(prog: dict, ref: dict, X) -> dict:
             "aligned_start": gap("aligned_start")}
 
 
-def follow_reference(init: dict, X, Y, nsl, cfg: dict, traffic: dict, model_seed: int,
+def follow_reference(init: dict, data: dict, cfg: dict, traffic: dict, model_seed: int,
                      precision: reference.Precision) -> dict:
     """The reference (in another precision, or with a planted fault)
     through the entry's first steps, and its aligned coordinates after
     them."""
     with _tf32_off():
-        losses, grads, params = entry(traffic).follow(init, X, Y, nsl, cfg, traffic,
-                                                      model_seed, precision)
-        view = _moving_view(cfg, nsl)
+        losses, grads, params = entry(traffic).follow(init, data, cfg, traffic, model_seed,
+                                                      precision)
+        view = _moving_view(cfg, data)
         aligned = lambda p: reference.aligned_means(
-            {k: v.to(precision.dtype) for k, v in p.items()}, X, nsl, cfg, view, precision).double()
+            {k: v.to(precision.dtype) for k, v in p.items()}, data, cfg, view, precision).double()
         return {"losses": losses, "grads": grads, "params": params, "aligned": aligned(params),
                 "aligned_start": aligned(init), "init": init}
 
@@ -283,19 +308,22 @@ class _tf32_off:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
 
 
-def _moving_view(cfg: dict, nsl) -> int:
+def _moving_view(cfg: dict, data: dict) -> int:
     fixed = cfg["model"].get("fixed_view_idx")
-    return next(v for v in range(len(nsl)) if v != fixed)
+    V = len(next(iter(data.values()))[2])
+    return next(v for v in range(V) if v != fixed)
 
 
-def program_aligned(model, X, nsl, cfg: dict, params: dict):
-    """``predict``'s aligned coordinates of the moving view at ``params``
-    (the program's own parameters after the first steps, written back)."""
+def program_aligned(model, data: dict, cfg: dict, params: dict):
+    """``predict``'s aligned coordinates of the moving view's points of
+    every modality, in the model's order, at ``params`` (the program's own
+    parameters after the first steps, written back)."""
     install(model, params)
-    view = _moving_view(cfg, nsl)
-    G_means, _, _ = model.predict({MOD: X.cpu().numpy()})
-    off = sum(nsl[:view])
-    return torch.as_tensor(G_means[MOD][off:off + nsl[view]], device=X.device)
+    view = _moving_view(cfg, data)
+    G_means, _, _ = model.predict({mod: X.cpu().numpy() for mod, (X, _, _) in data.items()})
+    dev = next(iter(data.values()))[0].device
+    return torch.cat([torch.as_tensor(G_means[mod][_view(nsl, view)], device=dev)
+                      for mod, (_, _, nsl) in data.items()])
 
 
 def judge(values: dict, limits: Optional[dict]) -> tuple:
@@ -476,31 +504,32 @@ def setup(cfg: dict, traffic: dict, seed: int, dev):
     """Set-up of a run: the inputs from ``seed``, the model as a user builds
     it, the configuration's starting parameters written into it (where its
     ``init`` is null, the constructor's are kept), and the entry's first
-    calls (the first captures the step). Returns (model, X, Y, counts,
-    starting parameters, the program's first steps)."""
+    calls (the first captures the step). Returns (model, the data as
+    {modality: (coordinates, outputs, counts)}, starting parameters, the
+    program's first steps)."""
     t0 = time.perf_counter()
-    X, Y, nsl = datagen.make_data(cfg, seed, dev)
+    data = datagen.make_data(cfg, seed, dev)
     t1 = time.perf_counter()
-    model = build_model(cfg, traffic, X, Y, nsl, int(seed), dev)
+    model = build_model(cfg, traffic, data, int(seed), dev)
     t2 = time.perf_counter()
     if cfg.get("init") is None:
         init = {k: v.detach().clone() for k, v in flat(model.params).items()}
     else:
-        init = make_init(cfg, X, nsl, seed)
+        init = make_init(cfg, data, seed)
         install(model, init)
     t3 = time.perf_counter()
     prog = entry(traffic).first_steps(model, cfg, traffic)
     prog["init"] = init
     log(f"set-up parts: data {t1 - t0:.3f} s, model {t2 - t1:.3f} s, starting parameters "
         f"{t3 - t2:.3f} s, first calls {time.perf_counter() - t3:.3f} s")
-    return model, X, Y, nsl, init, prog
+    return model, data, init, prog
 
 
-def program_outputs(model, X, nsl, cfg: dict, prog: dict):
+def program_outputs(model, data: dict, cfg: dict, prog: dict):
     """Add to ``prog`` the program's aligned coordinates at the starting
     parameters and after the first steps (both written back in turn)."""
-    prog["aligned_start"] = program_aligned(model, X, nsl, cfg, prog["init"])
-    prog["aligned"] = program_aligned(model, X, nsl, cfg, prog["params"])
+    prog["aligned_start"] = program_aligned(model, data, cfg, prog["init"])
+    prog["aligned"] = program_aligned(model, data, cfg, prog["params"])
 
 
 def free(dev):
@@ -528,7 +557,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
 
     # Set-up: inputs, the model as a user builds it, the configuration's
     # starting parameters, the entry's first calls (the first captures).
-    model, X, Y, nsl, init, prog = setup(cfg, traffic, seed, dev)
+    model, data, init, prog = setup(cfg, traffic, seed, dev)
     if cuda:
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_start
@@ -583,11 +612,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
     # The comparison, once the window has closed and the peak is read: the
     # program's aligned coordinates at its parameters after the first
     # steps, the program freed, then the reference through the same steps.
-    program_outputs(model, X, nsl, cfg, prog)
+    program_outputs(model, data, cfg, prog)
     del model
     free(dev)
-    ref = follow_reference(init, X, Y, nsl, cfg, traffic, model_seed, reference.Precision())
-    values = readings(prog, ref, X)
+    t0 = time.perf_counter()
+    ref = follow_reference(init, data, cfg, traffic, model_seed, reference.Precision())
+    log(f"reference {time.perf_counter() - t0:.3f} s; losses, program "
+        + " ".join(repr(v) for v in prog["losses"]) + "; reference "
+        + " ".join(repr(v) for v in ref["losses"]))
+    values = readings(prog, ref, data)
     correct, checks = judge(values, r["limits"])
     found = forbidden_modules()
     if found:

@@ -6,23 +6,29 @@ the square variational parameterization of the upstream ``VariationalGPSA``)
 in the plainest form, with autograd for the gradients and Adam by its
 formulas.
 
-The two layers, each a sparse variational GP with inducing points:
+The two layers, each a sparse variational GP with inducing points, over
+one or more modalities (``{modality: (coords, outputs, per-view counts)}``
+in the model's order, all over the same views):
 
 * warp layer, per view v that is not the fixed one: inducing points
   Xtilde_v, RBF kernel (lengthscale, variance per view), prior mean the
   identity, q(u) = N(delta_G, Omega Omega^T) per spatial dimension with
-  Omega = chol(A A^T + eps max(1, mean diag) I) from the stored factor A.
-  The aligned coordinates are mu + sqrt(var) * noise at the warp
-  temperature; the fixed view keeps its coordinates.
-* data layer on the aligned coordinates: inducing points Gtilde, one RBF
-  kernel, L latent GPs with zero prior mean mixed into the P outputs by W.
+  Omega = chol(A A^T + eps max(1, mean diag) I) from the stored factor A,
+  over the view's points of every modality. The aligned coordinates are
+  mu + sqrt(var) * noise at the warp temperature; the fixed view keeps its
+  coordinates.
+* data layer on the aligned coordinates: inducing points Gtilde and one
+  RBF kernel shared by the modalities; each modality has its own q(u) of
+  L latent GPs with zero prior mean and its own KL term, and its latents
+  are mixed into its P outputs by its W (``"W/<modality>"``), or are its
+  outputs where it has none (L = P, no LMC).
 
-The loss is -E[log N(y; f, s)] + KL, with s = exp(noise_variance[-1]) + eps,
-the sample mean over S Monte-Carlo draws. Every Gram gets the jitter
-eps max(1, mean diag), raised from m = 64 up to the float32 noise floor
-0.5 sqrt(m) 1.2e-7 max row sum |K|, and escalated to 10x or 100x where a
-float32 Cholesky fails at the lower rung: the model's stated numerical
-safeguard.
+The loss is -E[log N(y; f, s)] + KL, with s = exp(noise_variance[-M + mm])
++ eps for modality mm of M, the sample mean over S Monte-Carlo draws.
+Every Gram gets the jitter eps max(1, mean diag), raised from m = 64 up to
+the float32 noise floor 0.5 sqrt(m) 1.2e-7 max row sum |K|, and escalated
+to 10x or 100x where a float32 Cholesky fails at the lower rung: the
+model's stated numerical safeguard.
 
 ``Precision("reference")`` computes everything in float64;
 ``Precision("float32")`` everything in float32, and
@@ -197,83 +203,121 @@ def _svgp(Kuf, Lu, Om, diff, kff, eps, P):
 
 class Draws:
     """One step's Monte-Carlo draws, from a ``torch.Generator`` seeded as the
-    model's, in the order a training step of the model draws them: the
-    minibatch indices per view (when ``B``), the warp noise
-    (S, V, n, D), the data noise (S, V n, L)."""
+    model's, in the order and the padding of a training step of the model
+    (``models/core.py``: ``subsample_batch``, then ``warp_layer``, then
+    ``data_layer``). A modality's points are padded, view by view, to Np:
+    the most points a view of it has, or the minibatch's ``B``; view v's
+    n_v points come first in its block. In order:
 
-    def __init__(self, gen, nsl, S, D, L, B=None):
+    * with a minibatch, each modality's indices in turn, each view's B
+      drawn from [0, n_v): ``idx[mod]`` (V, B);
+    * the warp noise ``warp`` (S, V, Ntot, D): Ntot is the modalities' Np
+      summed, each modality's block at ``offset[mod]``, in the model's
+      order (the warp layer runs over all modalities' points at once);
+    * each modality's data noise in turn, ``data[mod]`` (S, V Np, L), view
+      v's rows from v Np.
+
+    ``counts`` is {modality: per-view counts} and ``widths`` {modality: L},
+    both in the model's order."""
+
+    def __init__(self, gen, counts: dict, S, D, widths: dict, B=None):
         dev = gen.device
         self.idx = None
         if B is not None:
-            self.idx = torch.stack([torch.randint(n, (B,), generator=gen, device=dev)
-                                    for n in nsl])
-        n = B if B is not None else max(nsl)
-        V = len(nsl)
-        self.warp = torch.randn((S, V, n, D), generator=gen, device=dev)
-        self.data = torch.randn((S, V * n, L), generator=gen, device=dev)
+            self.idx = {mod: torch.stack([torch.randint(n, (B,), generator=gen, device=dev)
+                                          for n in nsl]) for mod, nsl in counts.items()}
+        self.padded = {mod: B if B is not None else max(nsl) for mod, nsl in counts.items()}
+        self.offset, total = {}, 0
+        for mod, n in self.padded.items():
+            self.offset[mod], total = total, total + n
+        V = len(next(iter(counts.values())))
+        self.warp = torch.randn((S, V, total, D), generator=gen, device=dev)
+        self.data = {mod: torch.randn((S, V * n, widths[mod]), generator=gen, device=dev)
+                     for mod, n in self.padded.items()}
 
 
-def negative_elbo(p: Dict[str, torch.Tensor], X, Y, nsl, draws: Draws, cfg: dict,
+def negative_elbo(p: Dict[str, torch.Tensor], data: dict, draws: Draws, cfg: dict,
                   P: Precision, temperature: float = 1.0):
     """The loss at parameters ``p`` ({name: tensor}, flat names as
-    ``"delta_F/expression"``) on coordinates X (N, D) and outputs Y (N, P)
-    of views of sizes ``nsl``, with ``draws``."""
+    ``"delta_F/expression"``) on ``data``, {modality: (coordinates (N, D),
+    outputs (N, P), per-view counts)} in the model's order, with
+    ``draws``."""
     dt = P.dtype
     model = cfg["model"]
     eps = float(model.get("diagonal_offset", 1e-5))
     fixed = model.get("fixed_view_idx")
-    V, D = len(nsl), X.shape[-1]
-    mod = "expression"
-    offs = [sum(nsl[:v]) for v in range(V)]
-    Xv = [X[o:o + n].to(dt) for o, n in zip(offs, nsl)]
-    Yv = [Y[o:o + n].to(dt) for o, n in zip(offs, nsl)]
+    mods = list(data)
+    M, V = len(mods), len(data[mods[0]][2])
+    dev = data[mods[0]][0].device
     S = draws.warp.shape[0]
-    weights = [torch.ones((), dtype=dt, device=X.device)] * V
-    if draws.idx is not None:
-        B = draws.idx.shape[1]
-        Xv = [x[draws.idx[v]] for v, x in enumerate(Xv)]
-        Yv = [y[draws.idx[v]] for v, y in enumerate(Yv)]
-        weights = [torch.tensor(n / B, dtype=dt, device=X.device) for n in nsl]
+    # Each modality's coordinates, outputs and likelihood weights, view by view.
+    Xv, Yv, weights = {}, {}, {}
+    for mod, (X, Y, nsl) in data.items():
+        offs = [sum(nsl[:v]) for v in range(V)]
+        Xv[mod] = [X[o:o + n].to(dt) for o, n in zip(offs, nsl)]
+        Yv[mod] = [Y[o:o + n].to(dt) for o, n in zip(offs, nsl)]
+        weights[mod] = [torch.ones((), dtype=dt, device=dev)] * V
+        if draws.idx is not None:
+            idx = draws.idx[mod]
+            Xv[mod] = [x[idx[v]] for v, x in enumerate(Xv[mod])]
+            Yv[mod] = [y[idx[v]] for v, y in enumerate(Yv[mod])]
+            weights[mod] = [torch.tensor(n / idx.shape[1], dtype=dt, device=dev) for n in nsl]
 
-    kl = torch.zeros((), dtype=dt, device=X.device)
-    G = []
+    kl = torch.zeros((), dtype=dt, device=dev)
+    G = {mod: [] for mod in mods}  # each view's warped points, (S, n_v, D)
     for v in range(V):
         if v == fixed:
-            G.append(Xv[v].expand(S, *Xv[v].shape))
+            for mod in mods:
+                G[mod].append(Xv[mod][v].expand(S, *Xv[mod][v].shape))
             continue
+        # One warp GP over the view's points of every modality.
+        sizes = [Xv[mod][v].shape[0] for mod in mods]
+        Xw = torch.cat([Xv[mod][v] for mod in mods])
+        noise = torch.cat([draws.warp[:, v, draws.offset[mod]:draws.offset[mod] + n]
+                           for mod, n in zip(mods, sizes)], dim=1)
         Xt = p["Xtilde"][v]
         ls, var = p["warp_kernel_lengthscales"][v], p["warp_kernel_variances"][v]
         Lu = _chol_jittered(rbf(Xt, Xt, ls, var, P), eps)
         Om = _chol_psd(p["Omega_sqt_G"][v], eps, P)  # (D, m, m)
-        mu, sig = _svgp(rbf(Xt, Xv[v], ls, var, P), Lu, Om, p["delta_G"][v] - Xt,
+        mu, sig = _svgp(rbf(Xt, Xw, ls, var, P), Lu, Om, p["delta_G"][v] - Xt,
                         torch.exp(var), eps, P)
-        mu = Xv[v] + mu
+        mu = Xw + mu
         if P.fault == "warp_mean_altered":
             mu = mu + 1e-2
         scale = torch.sqrt(torch.clamp_min(sig.transpose(-1, -2), _VAR_FLOOR)) * temperature
-        G.append(mu + scale * draws.warp[:, v, : Xv[v].shape[0]].to(dt))
+        warped = mu + scale * noise.to(dt)
+        for mod, g in zip(mods, warped.split(sizes, dim=1)):
+            G[mod].append(g)
         kl = kl + _kl(p["delta_G"][v].transpose(0, 1), Om, Xt.transpose(0, 1), Lu)
 
-    Gs = torch.cat(G, dim=1)  # (S, N, D), view-major
+    # The data GP: Gtilde and the kernel shared, q(u), W and noise per modality.
     Gt = p["Gtilde"]
     lsd, vard = p["data_kernel_lengthscale"][0], p["data_kernel_variance"][0]
     Ld = _chol_jittered(rbf(Gt, Gt, lsd, vard, P), eps)
-    OmF = _chol_psd(p[f"Omega_sqt_F/{mod}"], eps, P)  # (L, m, m)
-    delta = p[f"delta_F/{mod}"]
-    mu, sig = _svgp(rbf(Gt, Gs, lsd, vard, P), Ld, OmF, delta, torch.exp(vard), eps, P)
-    sig = torch.clamp_min(sig.transpose(-1, -2), _VAR_FLOOR)  # (S, N, L)
-    lat = mu + torch.sqrt(sig) * draws.data.to(dt)
-    obs = P.mm(lat, p[f"W/{mod}"])  # (S, N, P)
-    kl = kl + _kl(delta.transpose(0, 1), OmF, torch.zeros_like(delta.transpose(0, 1)), Ld)
+    nll = 0.0
+    for mm, mod in enumerate(mods):
+        Gs = torch.cat(G[mod], dim=1)  # (S, N, D), view-major
+        OmF = _chol_psd(p[f"Omega_sqt_F/{mod}"], eps, P)  # (L, m, m)
+        delta = p[f"delta_F/{mod}"]
+        mu, sig = _svgp(rbf(Gt, Gs, lsd, vard, P), Ld, OmF, delta, torch.exp(vard), eps, P)
+        sig = torch.clamp_min(sig.transpose(-1, -2), _VAR_FLOOR)  # (S, N, L)
+        Np = draws.padded[mod]
+        z = torch.cat([draws.data[mod][:, v * Np:v * Np + y.shape[0]]
+                       for v, y in enumerate(Yv[mod])], dim=1)
+        lat = mu + torch.sqrt(sig) * z.to(dt)
+        W = p.get(f"W/{mod}")
+        obs = lat if W is None else P.mm(lat, W)  # (S, N, P)
+        kl = kl + _kl(delta.transpose(0, 1), OmF, torch.zeros_like(delta.transpose(0, 1)), Ld)
 
-    scale = torch.exp(p["noise_variance"][-1]) + eps
-    Yall = torch.cat(Yv, 0)
-    w = torch.cat([weights[v].expand(Yv[v].shape[0]) for v in range(V)])
-    lp = -0.5 * torch.square((Yall - obs) / scale) - torch.log(scale) - 0.5 * _LOG_2PI
-    lp = lp * w[None, :, None]
-    if P.fault == "half_batch":
-        lp = 2.0 * lp[:, : lp.shape[1] // 2]
-    return -lp.sum() / S + kl
+        scale = torch.exp(p["noise_variance"][-M + mm]) + eps
+        Yall = torch.cat(Yv[mod], 0)
+        w = torch.cat([weights[mod][v].expand(Yv[mod][v].shape[0]) for v in range(V)])
+        lp = -0.5 * torch.square((Yall - obs) / scale) - torch.log(scale) - 0.5 * _LOG_2PI
+        lp = lp * w[None, :, None]
+        if P.fault == "half_batch":
+            lp = 2.0 * lp[:, : lp.shape[1] // 2]
+        nll = nll - lp.sum()
+    return nll / S + kl
 
 
 class Adam:
@@ -299,17 +343,20 @@ class Adam:
         return out
 
 
-def follow(init: Dict[str, torch.Tensor], X, Y, nsl, cfg: dict, calls, gen_seed: int,
+def follow(init: Dict[str, torch.Tensor], data: dict, cfg: dict, calls, gen_seed: int,
            P: Precision, minibatch: Optional[int] = None):
-    """The first steps of training from ``init``: ``calls`` is the steps of
-    each fit() call in order (a new Adam each call, as each fit() starts
-    from a fresh state), the draws from a generator on X's device seeded
+    """The first steps of training from ``init`` on ``data`` (as
+    :func:`negative_elbo` takes it): ``calls`` is the steps of each fit()
+    call in order (a new Adam each call, as each fit() starts from a fresh
+    state), the draws from a generator on the data's device seeded
     ``gen_seed``. Returns (losses, first step's gradients, parameters
-    after the last step), all float64 on X's device."""
+    after the last step), all float64 on the data's device."""
     dt = P.dtype
     train = cfg["train"]
-    L = cfg["model"]["n_latent_gps"]
     S = int(train["S"])
+    X = next(iter(data.values()))[0]
+    counts = {mod: nsl for mod, (_, _, nsl) in data.items()}
+    widths = {mod: init[f"delta_F/{mod}"].shape[-1] for mod in data}
     gen = torch.Generator(device=X.device)
     gen.manual_seed(int(gen_seed))
     params = {k: v.detach().to(dt) for k, v in init.items()}
@@ -317,9 +364,9 @@ def follow(init: Dict[str, torch.Tensor], X, Y, nsl, cfg: dict, calls, gen_seed:
     for n_steps in calls:
         opt = Adam(float(train["lr"]))
         for _ in range(n_steps):
-            draws = Draws(gen, nsl, S, X.shape[-1], L, minibatch)
+            draws = Draws(gen, counts, S, X.shape[-1], widths, minibatch)
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-            loss = negative_elbo(leaves, X, Y, nsl, draws, cfg, P)
+            loss = negative_elbo(leaves, data, draws, cfg, P)
             grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
             if first_grad is None:
                 first_grad = {k: g.detach().double() for k, g in grads.items()}
@@ -329,14 +376,14 @@ def follow(init: Dict[str, torch.Tensor], X, Y, nsl, cfg: dict, calls, gen_seed:
     return losses, first_grad, {k: v.detach().double() for k, v in params.items()}
 
 
-def aligned_means(p: Dict[str, torch.Tensor], X, nsl, cfg: dict, view: int, P: Precision,
+def aligned_means(p: Dict[str, torch.Tensor], data: dict, cfg: dict, view: int, P: Precision,
                   block: int = 8192):
-    """The warp layer's posterior mean of view ``view``'s coordinates (the
-    aligned coordinates ``predict`` reads out), in blocks of points."""
+    """The warp layer's posterior mean of view ``view``'s points of every
+    modality, concatenated in the model's order (the aligned coordinates
+    ``predict`` reads out), in blocks of points."""
     dt = P.dtype
     eps = float(cfg["model"].get("diagonal_offset", 1e-5))
-    off = sum(nsl[:view])
-    Xv = X[off:off + nsl[view]].to(dt)
+    Xv = torch.cat([X[sum(nsl[:view]):sum(nsl[:view + 1])] for X, _, nsl in data.values()]).to(dt)
     Xt = p["Xtilde"][view].to(dt)
     ls, var = p["warp_kernel_lengthscales"][view].to(dt), p["warp_kernel_variances"][view].to(dt)
     Lu = _chol_jittered(rbf(Xt, Xt, ls, var, P), eps)

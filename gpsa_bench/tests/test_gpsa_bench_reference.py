@@ -23,12 +23,17 @@ def _kl(mq, Sq, mp, Sp):
                   + np.linalg.slogdet(Sp)[1] - np.linalg.slogdet(Sq)[1])
 
 
-def _hand_loss(p, X, Y, nsl, warp_noise, data_noise, eps):
+def _hand_loss(p, data, warp_noise, data_noise, eps):
     """The negative ELBO in numpy, from the model's description: view 0
-    fixed, dense inverses, one sample."""
-    V, n = len(nsl), nsl[0]
-    Xv = [X[v * n:(v + 1) * n] for v in range(V)]
-    G = [Xv[0]]
+    fixed, dense inverses, one sample; the draws padded as the model pads
+    each modality's points (``reference.Draws``)."""
+    mods = list(data)
+    M, V = len(mods), len(data[mods[0]][2])
+    pad = {mod: max(nsl) for mod, (_, _, nsl) in data.items()}
+    off = dict(zip(mods, np.cumsum([0] + [pad[mod] for mod in mods])))
+    views = {mod: [X[sum(nsl[:v]):sum(nsl[:v + 1])] for v in range(V)]
+             for mod, (X, _, nsl) in data.items()}
+    G = {mod: [views[mod][0]] for mod in mods}
     kl = 0.0
     for v in range(1, V):
         Xt = p["Xtilde"][v]
@@ -36,77 +41,111 @@ def _hand_loss(p, X, Y, nsl, warp_noise, data_noise, eps):
         Kuu = _rbf(Xt, Xt, ls, var)
         Kuu = Kuu + eps * max(1.0, np.mean(np.diag(Kuu))) * np.eye(len(Xt))
         Kinv = np.linalg.inv(Kuu)
-        Kfu = _rbf(Xv[v], Xt, ls, var)
-        g = np.zeros_like(Xv[v])
+        Xw = np.concatenate([views[mod][v] for mod in mods])
+        noise = np.concatenate([warp_noise[0, v, off[mod]:off[mod] + len(views[mod][v])]
+                                for mod in mods])
+        Kfu = _rbf(Xw, Xt, ls, var)
+        g = np.zeros_like(Xw)
         for d in range(2):
             A = p["Omega_sqt_G"][v, d]
             Sq = A @ A.T
             Sq = Sq + eps * max(1.0, np.mean(np.diag(Sq))) * np.eye(len(Xt))
-            mean = Xv[v][:, d] + Kfu @ Kinv @ (p["delta_G"][v][:, d] - Xt[:, d])
+            mean = Xw[:, d] + Kfu @ Kinv @ (p["delta_G"][v][:, d] - Xt[:, d])
             cov = (math.exp(var) - np.einsum("ij,jk,ik->i", Kfu, Kinv, Kfu)
                    + np.einsum("ij,jk,kl,il->i", Kfu, Kinv @ Sq, Kinv, Kfu) + 2 * eps)
-            g[:, d] = mean + np.sqrt(cov) * warp_noise[0, v, :, d]
+            g[:, d] = mean + np.sqrt(cov) * noise[:, d]
             kl += _kl(p["delta_G"][v][:, d], Sq, Xt[:, d], Kuu)
-        G.append(g)
-    Gs = np.concatenate(G)
+        ends = np.cumsum([len(views[mod][v]) for mod in mods])[:-1]
+        for mod, piece in zip(mods, np.split(g, ends)):
+            G[mod].append(piece)
     Gt, ls, var = p["Gtilde"], p["data_kernel_lengthscale"][0], p["data_kernel_variance"][0]
     Kuu = _rbf(Gt, Gt, ls, var)
     Kuu = Kuu + eps * max(1.0, np.mean(np.diag(Kuu))) * np.eye(len(Gt))
     Kinv = np.linalg.inv(Kuu)
-    Kfu = _rbf(Gs, Gt, ls, var)
-    A = p["Omega_sqt_F/expression"][0]
-    Sq = A @ A.T
-    Sq = Sq + eps * max(1.0, np.mean(np.diag(Sq))) * np.eye(len(Gt))
-    delta = p["delta_F/expression"][:, 0]
-    mean = Kfu @ Kinv @ delta
-    cov = (math.exp(var) - np.einsum("ij,jk,ik->i", Kfu, Kinv, Kfu)
-           + np.einsum("ij,jk,kl,il->i", Kfu, Kinv @ Sq, Kinv, Kfu) + 2 * eps)
-    lat = mean + np.sqrt(cov) * data_noise[0, :, 0]
-    obs = lat[:, None] @ p["W/expression"]
-    kl += _kl(delta, Sq, np.zeros_like(delta), Kuu)
-    s = math.exp(p["noise_variance"][-1]) + eps
-    ll = (-0.5 * ((Y - obs) / s) ** 2 - math.log(s) - 0.5 * math.log(2 * math.pi)).sum()
+    ll = 0.0
+    for mm, mod in enumerate(mods):
+        _, Y, nsl = data[mod]
+        Gs = np.concatenate(G[mod])
+        Kfu = _rbf(Gs, Gt, ls, var)
+        z = np.concatenate([data_noise[mod][0, v * pad[mod]:v * pad[mod] + nsl[v]]
+                            for v in range(V)])
+        lat = np.zeros((len(Gs), p[f"delta_F/{mod}"].shape[1]))
+        for c in range(lat.shape[1]):
+            A = p[f"Omega_sqt_F/{mod}"][c]
+            Sq = A @ A.T
+            Sq = Sq + eps * max(1.0, np.mean(np.diag(Sq))) * np.eye(len(Gt))
+            delta = p[f"delta_F/{mod}"][:, c]
+            mean = Kfu @ Kinv @ delta
+            cov = (math.exp(var) - np.einsum("ij,jk,ik->i", Kfu, Kinv, Kfu)
+                   + np.einsum("ij,jk,kl,il->i", Kfu, Kinv @ Sq, Kinv, Kfu) + 2 * eps)
+            lat[:, c] = mean + np.sqrt(cov) * z[:, c]
+            kl += _kl(delta, Sq, np.zeros_like(delta), Kuu)
+        obs = lat @ p[f"W/{mod}"] if f"W/{mod}" in p else lat
+        s = math.exp(p["noise_variance"][-M + mm]) + eps
+        ll += (-0.5 * ((Y - obs) / s) ** 2 - math.log(s) - 0.5 * math.log(2 * math.pi)).sum()
     return -ll + kl
 
 
-def _tiny():
+def _tiny(two_modalities=False):
+    """Parameters and data at m = 2: one modality of 3 points a view, 2
+    outputs through 1 latent; or two, "A" (3 and 2 points, 2 outputs
+    through 1 latent) and "B" (2 and 4 points, 3 outputs without LMC), with
+    three noise terms."""
     rng = np.random.default_rng(3)
-    n, m = 3, 2
-    X = rng.uniform(0, 2, (2 * n, 2))
-    Y = rng.normal(size=(2 * n, 2))
-    p = {"noise_variance": rng.normal(size=2) - 1, "warp_kernel_variances": np.zeros(2),
+    m = 2
+    shapes = {"A": ([3, 2], 2, 1), "B": ([2, 4], 3, None)} if two_modalities \
+        else {"expression": ([3, 3], 2, 1)}
+    data = {mod: (rng.uniform(0, 2, (sum(nsl), 2)), rng.normal(size=(sum(nsl), P)), nsl)
+            for mod, (nsl, P, _) in shapes.items()}
+    p = {"noise_variance": rng.normal(size=3 if two_modalities else 2) - 1,
+         "warp_kernel_variances": np.zeros(2),
          "warp_kernel_lengthscales": np.zeros(2), "data_kernel_lengthscale": np.zeros(1),
          "data_kernel_variance": rng.normal(size=1) * 0.1,
          "Xtilde": rng.uniform(0, 2, (2, m, 2)), "Gtilde": rng.uniform(0, 2, (m, 2)),
-         "Omega_sqt_G": 0.3 * rng.normal(size=(2, 2, m, m)),
-         "Omega_sqt_F/expression": 0.3 * rng.normal(size=(1, m, m)),
-         "delta_F/expression": rng.normal(size=(m, 1)), "W/expression": rng.normal(size=(1, 2))}
+         "Omega_sqt_G": 0.3 * rng.normal(size=(2, 2, m, m))}
+    for mod, (_, P, L) in shapes.items():
+        p[f"Omega_sqt_F/{mod}"] = 0.3 * rng.normal(size=(L or P, m, m))
+        p[f"delta_F/{mod}"] = rng.normal(size=(m, L or P))
+        if L is not None:
+            p[f"W/{mod}"] = rng.normal(size=(L, P))
     p["delta_G"] = p["Xtilde"] + 0.1 * rng.normal(size=(2, m, 2))
-    cfg = {"model": {"diagonal_offset": 1e-5, "fixed_view_idx": 0, "n_latent_gps": 1},
+    cfg = {"model": {"diagonal_offset": 1e-5, "fixed_view_idx": 0,
+                     "n_latent_gps": {mod: L for mod, (_, _, L) in shapes.items()}},
            "train": {"S": 1, "lr": 0.01}}
-    return p, X, Y, [n, n], cfg
+    return p, data, cfg
 
 
-def test_loss_matches_a_float64_hand_computation():
-    p, X, Y, nsl, cfg = _tiny()
+def _torch(p, data):
+    return ({k: torch.as_tensor(v) for k, v in p.items()},
+            {mod: (torch.as_tensor(X), torch.as_tensor(Y), nsl)
+             for mod, (X, Y, nsl) in data.items()})
+
+
+@pytest.mark.parametrize("two_modalities", [False, True])
+def test_loss_matches_a_float64_hand_computation(two_modalities):
+    p, data, cfg = _tiny(two_modalities)
     gen = torch.Generator()
     gen.manual_seed(9)
-    draws = reference.Draws(gen, nsl, 1, 2, 1)
-    pt = {k: torch.as_tensor(v) for k, v in p.items()}
-    got = reference.negative_elbo(pt, torch.as_tensor(X), torch.as_tensor(Y), nsl, draws, cfg,
-                                  reference.Precision())
-    want = _hand_loss(p, X, Y, nsl, draws.warp.double().numpy(), draws.data.double().numpy(),
-                      1e-5)
+    counts = {mod: nsl for mod, (_, _, nsl) in data.items()}
+    widths = {mod: p[f"delta_F/{mod}"].shape[1] for mod in data}
+    draws = reference.Draws(gen, counts, 1, 2, widths)
+    pt, dt = _torch(p, data)
+    got = reference.negative_elbo(pt, dt, draws, cfg, reference.Precision())
+    want = _hand_loss(p, data, draws.warp.double().numpy(),
+                      {mod: z.double().numpy() for mod, z in draws.data.items()}, 1e-5)
     assert float(got) == pytest.approx(want, rel=1e-10)
 
 
-def test_aligned_means_are_the_warp_mean():
-    p, X, Y, nsl, cfg = _tiny()
-    pt = {k: torch.as_tensor(v) for k, v in p.items()}
-    got = reference.aligned_means(pt, torch.as_tensor(X), nsl, cfg, 1, reference.Precision())
+@pytest.mark.parametrize("two_modalities", [False, True])
+def test_aligned_means_are_the_warp_mean(two_modalities):
+    """The moving view's points of every modality, in the model's order."""
+    p, data, cfg = _tiny(two_modalities)
+    pt, dt = _torch(p, data)
+    got = reference.aligned_means(pt, dt, cfg, 1, reference.Precision())
     Xt = p["Xtilde"][1]
     Kuu = _rbf(Xt, Xt, 0.0, 0.0) + 1e-5 * np.eye(2)
-    want = X[3:] + _rbf(X[3:], Xt, 0.0, 0.0) @ np.linalg.solve(Kuu, p["delta_G"][1] - Xt)
+    X1 = np.concatenate([X[nsl[0]:] for X, _, nsl in data.values()])
+    want = X1 + _rbf(X1, Xt, 0.0, 0.0) @ np.linalg.solve(Kuu, p["delta_G"][1] - Xt)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-12)
 
 

@@ -33,52 +33,6 @@ def test_a_sound_run_is_correct(harness, cell):
     assert list(out)[-1] == "checks"
 
 
-@pytest.fixture
-def unchanged_state(monkeypatch):
-    """Each training step hands back the parameters it was given."""
-    from spatial_alignment_tpu_torch.models import train
-
-    step = train.TrainLoop._step
-
-    def frozen(self):
-        saved = [leaf.detach().clone() for leaf in self.leaves]
-        step(self)
-        self._put_back(saved)
-
-    monkeypatch.setattr(train.TrainLoop, "_step", frozen)
-
-
-@pytest.fixture
-def half_batch(monkeypatch):
-    """The likelihood over the first half of each view's points, doubled."""
-    from spatial_alignment_tpu_torch.models import core
-
-    def half(y, f, scale, mask):
-        h = y.shape[-2] // 2
-        return 2.0 * core.gaussian_loglik_sum.__wrapped__(
-            y[..., :h, :], f[..., :h, :], scale, mask[..., :h])
-
-    half.__wrapped__ = core.gaussian_loglik_sum
-    monkeypatch.setattr(core, "gaussian_loglik_sum", half)
-
-
-@pytest.fixture
-def warp_mean_altered(monkeypatch):
-    """The warp layer's aligned coordinates moved by 0.01 where they are
-    produced."""
-    from spatial_alignment_tpu_torch.models import core
-
-    layer = core.warp_layer
-
-    def moved(spec, *args, **kwargs):
-        mu, samples, aux = layer(spec, *args, **kwargs)
-        keep = torch.tensor([1.0 if f else 0.0 for f in spec.fixed_view_mask],
-                            dtype=mu.dtype, device=mu.device)[:, None, None]
-        return mu + 0.01 * (1 - keep), samples + 0.01 * (1 - keep), aux
-
-    monkeypatch.setattr(core, "warp_layer", moved)
-
-
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("fault", ["unchanged_state", "half_batch", "warp_mean_altered"])
 def test_a_planted_fault_is_not_correct(harness, cell, fault, request):

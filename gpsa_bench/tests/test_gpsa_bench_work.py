@@ -1,6 +1,8 @@
 """The work counts of ``gpsa_bench/work/`` against hand counts at small
 shapes, and the roofline arithmetic."""
 
+import types
+
 import pytest
 import torch
 
@@ -66,6 +68,35 @@ def test_step_counts_by_hand():
     # A minibatch replaces a view's points.
     cfg["data"]["grid_size"] = 10
     assert step.forward_flops(cfg, {"minibatch_size": 1}) == pytest.approx(warp + data)
+
+
+def test_step_counts_by_hand_with_two_modalities(monkeypatch):
+    """3-D coordinates (the generator's D); modality A through 1 latent into
+    2 outputs at 1 point a view, B without LMC, 1 output at 2 and 1 points:
+    one warp pass over 3 padded points a view, the data layer's Gram and
+    Cholesky once, each modality's channels, solves, KL and predictive pass
+    at its own width, the LMC product for A only."""
+    from gpsa_bench import byname
+
+    gen = types.ModuleType("two_modality_counts")
+    gen.SPATIAL_DIMS = 3
+    gen.points_per_view = lambda data: {"A": [1, 1], "B": [2, 1]}
+    monkeypatch.setitem(byname._loaded, ("generators", "two_modality_counts"), gen)
+    cfg = {"data": {"generator": "two_modality_counts", "n_outputs": {"A": 2, "B": 1}},
+           "model": {"n_latent_gps": {"A": 1, "B": None}, "m_X_per_view": 2, "m_G": 2,
+                     "fixed_view_idx": 0},
+           "train": {"S": 1}}
+    m, D = 2, 3
+    gram = lambda a, b: a * b * (3 * D + 3)
+    pred = lambda pts, C, B: (gram(m, pts) + m * m * pts + 2 * m * pts + 2 * m * pts * C
+                              + B * (2 * m * m * pts + 2 * m * pts + 4 * pts))
+    once = lambda C, B: 2 * m * m * C + B * m**3 / 3 + B * m * m * (m + 1)
+    n = 1 + 2
+    warp = (gram(m, m) + m**3 / 3 + D * (m**3 + m**3 / 3)) + pred(n, D, D) + once(D, D) + 3 * n * D
+    data = gram(m, m) + m**3 / 3 + 2 * (m**3 + m**3 / 3)
+    data += once(1, 1) + pred(2, 1, 1) + 3 * 2 + 2 * 2 * 2 + 6 * 2 * 2  # A: N = 2, P = 2
+    data += once(1, 1) + pred(4, 1, 1) + 3 * 4 + 6 * 4  # B: N = 4, P = 1, no W
+    assert step.forward_flops(cfg, {}) == pytest.approx(warp + data)
 
 
 def test_least_seconds_takes_the_larger_bound():

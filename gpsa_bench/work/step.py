@@ -14,14 +14,18 @@ points, mean width C and B variance channels:
   KL                a solve with m + 1 right-hand sides m^2 (m + 1) a channel
   sampling          3 a sampled value; LMC 2 L P a point; likelihood 6 a value
 The warp layer runs once a step for each view that is not fixed (C = B = D
-= 2 on the view's points), the data layer once for every Monte-Carlo
-sample (C = B = L on all views' points), its Gram, factors and KL once a
-step.
+on the view's points of every modality, each modality padded to its fullest
+view). The data layer's Gram of its inducing points and its Cholesky run
+once a step; each modality's channels' factors, solves and KL once a step,
+and its predictive pass, sampling and likelihood once for every Monte-Carlo
+sample (C = B = its L latents, or its P outputs where it has no LMC, on all
+views' points of that modality); the LMC product only where the modality
+has a W.
 """
 
 from __future__ import annotations
 
-from gpsa_bench.datagen import points_per_view
+from gpsa_bench.datagen import modalities, n_outputs, points_per_view, spatial_dims
 
 
 def _gram(m, n, D):
@@ -45,20 +49,24 @@ def _per_step(m, C, B):
 
 def forward_flops(cfg: dict, traffic: dict) -> float:
     """Operations of one forward of the negative ELBO."""
-    model, train, data = cfg["model"], cfg["train"], cfg["data"]
-    D, S = 2, int(train["S"])
-    L, P = int(model["n_latent_gps"]), int(data["n_outputs"])
-    nsl = points_per_view(cfg)
+    model, train = cfg["model"], cfg["train"]
+    D, S = spatial_dims(cfg), int(train["S"])
+    lmc, outputs, counts = modalities(cfg), n_outputs(cfg), points_per_view(cfg)
     batch = traffic.get("minibatch_size")
-    n = int(batch) if batch else max(nsl)
-    V = len(nsl)
+    padded = {mod: int(batch) if batch else max(nsl) for mod, nsl in counts.items()}
+    V = len(next(iter(counts.values())))
     active = V - (0 if model.get("fixed_view_idx") is None else 1)
     mX, mG = int(model["m_X_per_view"]), int(model["m_G"])
-    N = V * n
+    n = sum(padded.values())
     warp = active * (_factors(mX, D, D) + _predictive(mX, n, D, D, D) + _per_step(mX, D, D)
                      + 3 * n * D)
-    data_layer = (_factors(mG, L, D) + _per_step(mG, L, L)
-                  + S * (_predictive(mG, N, L, L, D) + 3 * N * L + 2 * N * L * P + 6 * N * P))
+    width = {mod: outputs[mod] if L is None else L for mod, L in lmc.items()}
+    data_layer = _factors(mG, sum(width.values()), D)
+    for mod, L in width.items():
+        N, P = V * padded[mod], outputs[mod]
+        data_layer = data_layer + _per_step(mG, L, L)
+        data_layer = data_layer + S * (_predictive(mG, N, L, L, D) + 3 * N * L
+                                       + (0 if lmc[mod] is None else 2 * N * L * P) + 6 * N * P)
     return float(warp + data_layer)
 
 
